@@ -8,14 +8,16 @@ Phases, each fatal on failure (non-zero exit, no result line):
 
 1. device: the card's name and power limit (nvidia-smi), torch/CUDA
    versions, then the build of the CUDA kernels from ``ray_tpu_torch/csrc``
-   (one nvcc per source, in parallel), with its seconds and nvcc's
-   register/spill report;
+   (one nvcc per source, in parallel), with its seconds and ptxas's
+   register, spill and wgmma-serialisation report; fails if the
+   warp-specialised kernels (forward, dK/dV) spill registers;
 2. kernels: each flash kernel (forward, backward dQ, backward dK/dV) against
    its plain PyTorch version on the same bf16 inputs on the card, at the
    GPT-2 medium attention shape (strided [B,S,H,D] views, as the model
-   passes them), llama_1b's GQA shape, non-causal, S=300, q_len 128 against
-   k_len 256, head_dim 32 and f32 inputs; then each kernel's time beside its
-   bound, its plain version and the PyTorch library call;
+   passes them), llama_1b's GQA shape, non-causal, S=300, S=1000 at
+   head_dim 128, S=129, q_len 128 against k_len 256, head_dim 32 and f32
+   inputs; then each kernel's time beside its bound, its plain version and
+   the PyTorch library call, at the GPT-2 medium and the llama_1b shape;
 3. model check: a small GPT on the card with attention through the kernels
    against the same weights with the reference attention (loss and grads);
 4. main path: gpt2_medium, batch 12 x seq 1024, remat "dots", 2 warm-up + 5
@@ -34,6 +36,7 @@ import argparse
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -67,6 +70,8 @@ REPLACES = {
     "flash_bwd_dq": "ray_tpu/ops/attention.py:190",
     "flash_bwd_dkv": "ray_tpu/ops/attention.py:235",
 }
+# the warp-specialised wgmma/TMA kernels, held to zero register spills
+HOPPER_KERNELS = ("flash_fwd", "flash_bwd_dkv")
 SOURCES = {
     "flash_fwd": "ray_tpu_torch/csrc/flash_fwd.cu",
     "flash_bwd_dq": "ray_tpu_torch/csrc/flash_bwd_dq.cu",
@@ -118,6 +123,25 @@ def bound_ms(flops: float, nbytes: float):
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def spilling_kernels(build_log, names):
+    """The entry functions of kernels `names` for which ptxas reports spill
+    stores or loads (a build log entry is "[name] <nvcc output>")."""
+    bad = []
+    for entry in build_log:
+        name = entry[1:entry.index("]")]
+        if name not in names:
+            continue
+        func = "?"
+        for ln in entry.splitlines():
+            if "Compiling entry function" in ln:
+                func = ln.split("'")[1] if "'" in ln else ln.strip()
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", ln)
+            if m and (int(m.group(1)) or int(m.group(2))):
+                bad.append(f"{name}: {func} ({ln.strip()})")
+    return bad
 
 
 # --- phase 2: kernels against their plain versions -------------------------
@@ -193,9 +217,11 @@ def check_case(torch, A, name, causal, tensors, results):
     return bad
 
 
-def time_kernels(torch, A, tensors, causal, results):
+def time_kernels(torch, A, tensors, causal, results=None):
     """ms of each kernel (launched alone), of its plain version and of the
-    PyTorch library call, at the GPT-2 medium attention shape."""
+    PyTorch library call at one attention shape; returns them with the
+    bound per kernel, and also writes them into `results` (the kernels
+    line's, for the main path's GPT-2 medium shape) when it is given."""
     import torch.nn.functional as F
 
     q, k, v, do = tensors
@@ -234,9 +260,11 @@ def time_kernels(torch, A, tensors, causal, results):
     # library yardstick, timed here only: SDPA forward, and SDPA's backward
     # (one call that computes dQ, dK and dV together)
     qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    gqa = H != Hk
     sdpa_fwd = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=causal))
-    sdpa_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
+        q, k, v, is_causal=causal, enable_gqa=gqa))
+    sdpa_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal,
+                                              enable_gqa=gqa)
     sdpa_bwd = cuda_ms(torch, lambda: torch.autograd.grad(
         sdpa_out, (qs, ks, vs), do, retain_graph=True))
     lib_ms = {"flash_fwd": sdpa_fwd, "flash_bwd_dq": sdpa_bwd,
@@ -251,15 +279,19 @@ def time_kernels(torch, A, tensors, causal, results):
         "flash_bwd_dq": (6 * D * live, 3 * qb + 2 * kb + 2 * rows),
         "flash_bwd_dkv": (8 * D * live, 2 * qb + 4 * kb + 2 * rows),
     }
+    timings = {}
     for name in kern_ms:
         b_ms, b_by = bound_ms(*work[name])
-        results[name].update(ms=kern_ms[name], plain_ms=plain_ms[name],
+        timings[name] = dict(ms=kern_ms[name], plain_ms=plain_ms[name],
                              bound_ms=b_ms, bound_by=b_by,
                              library_ms=lib_ms[name])
-        log(f"timing [{name}] B={B} H={H} S={S} D={D}: kernel "
+        if results is not None:
+            results[name].update(timings[name])
+        log(f"timing [{name}] B={B} H={H} Hk={Hk} S={S} D={D}: kernel "
             f"{kern_ms[name]:.4f} ms, bound {b_ms:.4f} ms ({b_by}), plain "
             f"{plain_ms[name]:.4f} ms, library {lib_ms[name]:.4f} ms, "
             f"achieved {work[name][0] / kern_ms[name] / 1e9:.1f} TFLOP/s")
+    return timings
 
 
 # --- phase 3: small model, kernels vs reference attention ------------------
@@ -436,11 +468,15 @@ def run(args) -> int:
     usage = [ln.strip() for entry in _ext.build_log
              for ln in entry.splitlines()
              if "Compiling entry" in ln or "registers" in ln
-             or ("spill" in ln and " 0 bytes spill stores" not in ln)]
+             or "spill" in ln or "warning" in ln.lower()
+             or "Performance Loss" in ln]
     log(f"build: {len(_ext.KERNELS)} kernels in {build_s:.1f}s (nvcc, "
         f"parallel)")
     for ln in usage:
         log(f"  ptxas: {ln}")
+    spills = spilling_kernels(_ext.build_log, HOPPER_KERNELS)
+    if spills:
+        raise SmokeFailure(f"registers spill in {spills}")
 
     # phase 2: kernels against their plain versions
     bf16 = torch.bfloat16
@@ -452,6 +488,9 @@ def run(args) -> int:
         ("non-causal B2 H16 S1024 D64", False,
          (2, 16, 16, 1024, 1024, 64, bf16, False)),
         ("S=300 B2 H16 Hk4 D64", True, (2, 16, 4, 300, 300, 64, bf16, False)),
+        ("S=1000 B2 H8 Hk2 D128", True,
+         (2, 8, 2, 1000, 1000, 128, bf16, True)),
+        ("S=129 B3 H4 D64", True, (3, 4, 4, 129, 129, 64, bf16, False)),
         ("q_len 128 k_len 256 B2 H16 D64", True,
          (2, 16, 16, 128, 256, 64, bf16, False)),
         ("D=32 llama_tiny B4 H4 Hk2 S256", True,
@@ -461,19 +500,20 @@ def run(args) -> int:
     ]
     results = {}
     failed = []
-    gpt2_tensors = None
+    timed = []   # the gpt2_medium and llama_1b cases are timed too
     for i, (name, causal, shape) in enumerate(cases):
         tensors = make_case(torch, *shape, seed=i)
         failed += check_case(torch, A, name, causal, tensors, results)
-        if i == 0:
-            gpt2_tensors = tensors
-        else:
-            del tensors
+        if i < 2:
+            timed.append(tensors)
+        del tensors
     if failed:
         raise SmokeFailure("kernels disagree with their plain versions: "
                            + "; ".join(failed))
-    time_kernels(torch, A, gpt2_tensors, True, results)
-    del gpt2_tensors
+    timings = {"gpt2_medium": time_kernels(torch, A, timed[0], True,
+                                           results),
+               "llama_1b_gqa_d128": time_kernels(torch, A, timed[1], True)}
+    del timed
     torch.cuda.empty_cache()
 
     # phase 3: small model against the reference attention
@@ -496,6 +536,7 @@ def run(args) -> int:
             json.dump({"device": smi, "torch": torch.__version__,
                        "cuda": torch.version.cuda, "build_s": build_s,
                        "ptxas": usage, "kernels": kernels,
+                       "timings": timings,
                        "readings": {k: r["readings"]
                                     for k, r in results.items()},
                        "model_check": model, "main": main},

@@ -1,13 +1,17 @@
-// Shared pieces of the three flash-attention kernels (fwd, dQ, dK/dV).
+// Shared pieces of the three flash-attention kernels (fwd, dQ, dK/dV): the
+// argument struct, and the mma.sync/ldmatrix/cp.async helpers of the dQ
+// kernel (the forward and dK/dV kernels' Hopper pieces are in
+// hopper_common.cuh).
 //
 // Layout: [batch, heads, seq, head_dim] ("BHSD") addressed through element
 // strides, so the model's transposed views [B,S,H,D] -> [B,H,S,D] reach the
 // kernels without a copy. The last dimension must be contiguous. GQA maps
 // q-head h to kv-head h / (H / Hk).
 //
-// Products run on the tensor cores with mma.sync m16n8k16 (bf16 inputs, f32
-// accumulation). Inputs of either bf16 or f32 are rounded to bf16 when they
-// are staged into shared memory; softmax state and accumulators are f32.
+// The dQ kernel's products run on the tensor cores with mma.sync m16n8k16
+// (bf16 inputs, f32 accumulation). Its inputs of either bf16 or f32 are
+// rounded to bf16 when they are staged into shared memory; softmax state
+// and accumulators are f32.
 //
 // The host side is a plain C interface (one `FlashParams` struct by
 // pointer plus the CUDA stream), bound from Python with ctypes; the struct
@@ -42,8 +46,8 @@ struct FlashParams {
     int B, H, Hk, Sq, Sk, D;
     float scale;
     int causal;
-    int in_f32;   // 0: q/k/v/dO are bf16, 1: f32
-    int out_f32;  // bwd only: 1 writes dQ/dK/dV in f32 (keep_f32)
+    int in_f32;   // 0: q/k/v/dO are bf16, 1: f32 (dQ only; fwd, dK/dV: 0)
+    int out_f32;  // 1 writes the outputs in f32 (keep_f32, or f32 inputs)
 };
 
 namespace flash {

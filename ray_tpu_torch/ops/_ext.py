@@ -33,7 +33,10 @@ KERNELS = {
     "flash_bwd_dq": ("flash_bwd_dq.cu", "rtt_flash_bwd_dq"),
     "flash_bwd_dkv": ("flash_bwd_dkv.cu", "rtt_flash_bwd_dkv"),
 }
-_HEADERS = ("flash_common.cuh",)
+# every header a kernel includes: an edit to one rebuilds the kernels
+_HEADERS = ("flash_common.cuh", "hopper_common.cuh")
+# a launcher's return code for a tensor map it could not encode (+ CUresult)
+ERR_TENSOR_MAP = 10000
 
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]

@@ -173,8 +173,18 @@ def _kernel_view(t: torch.Tensor, dtype) -> torch.Tensor:
     per16 = 16 // t.element_size()
     if (t.stride(-1) != 1 or any(s % per16 for s in t.stride()[:-1])
             or t.data_ptr() % 16):
-        t = t.contiguous()
+        # a fresh copy: .contiguous() would keep a misaligned base as it is
+        t = t.clone(memory_format=torch.contiguous_format)
     return t
+
+
+def _bf16_view(t: torch.Tensor, dtype) -> torch.Tensor:
+    """The tensor as the TMA kernels (forward, dK/dV) read it: bf16, 16-byte
+    aligned. f32 inputs are rounded to bf16 here (round to nearest even, as
+    the kernels' own rounding would), their strides kept."""
+    t = _kernel_view(t, dtype)
+    return t if dtype == torch.bfloat16 else \
+        _kernel_view(t.to(torch.bfloat16), torch.bfloat16)
 
 
 def _params(q, k, causal, scale, **tensors) -> _ext.FlashParams:
@@ -194,11 +204,26 @@ def _params(q, k, causal, scale, **tensors) -> _ext.FlashParams:
     return p
 
 
+def _check_card(device) -> None:
+    """The kernels are built for sm_90a (Hopper) alone: wgmma and setmaxnreg
+    exist for no other target."""
+    cap = torch.cuda.get_device_capability(device)
+    if cap != (9, 0):
+        raise RuntimeError(
+            f"ray_tpu_torch's flash kernels are built for sm_90a (Hopper, "
+            f"compute capability 9.0); {torch.cuda.get_device_name(device)} "
+            f"is {cap[0]}.{cap[1]}")
+
+
 def _launch(name: str, p: _ext.FlashParams, device) -> None:
+    _check_card(device)
     fn = _ext.kernel(name)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(ctypes.byref(p), ctypes.c_void_p(stream))
+    if err >= _ext.ERR_TENSOR_MAP:
+        raise RuntimeError(f"{name}: cuTensorMapEncodeTiled failed "
+                           f"(CUresult {err - _ext.ERR_TENSOR_MAP})")
     if err != 0:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
     launches[name] += 1
@@ -220,12 +245,14 @@ def flash_fwd(q, k, v, causal: bool = True, scale: Optional[float] = None
     if not _check(q, k, v):
         return flash_fwd_plain(q, k, v, causal, scale)
     dt = _kernel_dtype(q)
-    q, k, v = (_kernel_view(t, dt) for t in (q, k, v))
+    q = _kernel_view(q, dt)
     out = torch.empty_like(q)              # keeps q's (transposed) strides
+    q, k, v = (_bf16_view(t, dt) for t in (q, k, v))
     lse = torch.empty(q.shape[:3], device=q.device, dtype=torch.float32)
     if q.numel() and k.shape[2]:
-        _launch("flash_fwd", _params(q, k, causal, scale, v=v, o=out,
-                                     lse=lse), q.device)
+        p = _params(q, k, causal, scale, v=v, o=out, lse=lse)
+        p.out_f32 = int(dt == torch.float32)
+        _launch("flash_fwd", p, q.device)
     else:
         out.zero_()
         lse.fill_(NEG_INF)
@@ -255,8 +282,9 @@ def flash_bwd(q, k, v, out, lse, do, causal: bool = True,
         return dq, dk.to(k.dtype), dv.to(v.dtype)
     dt = _kernel_dtype(q)
     q, k, v, do = (_kernel_view(t, dt) for t in (q, k, v, do))
-    lse = lse.float().contiguous()
-    delta = delta.float().contiguous()
+    # the dK/dV kernel reads both through 1-D tensor maps: 16-byte aligned
+    lse, delta = (t.float().contiguous() for t in (lse, delta))
+    lse, delta = (t.clone() if t.data_ptr() % 16 else t for t in (lse, delta))
     if lse.shape != q.shape[:3] or delta.shape != q.shape[:3]:
         raise ValueError("lse/delta must be [B, H, Sq]")
     gdt = torch.float32 if keep_f32 else dt
@@ -269,6 +297,11 @@ def flash_bwd(q, k, v, out, lse, do, causal: bool = True,
                 dq=dq, dk=dk, dv=dv)
     p.out_f32 = int(keep_f32)
     _launch("flash_bwd_dq", p, q.device)
+    if dt == torch.float32:   # the dK/dV kernel reads bf16 through TMA
+        q, k, v, do = (_bf16_view(t, dt) for t in (q, k, v, do))
+        p = _params(q, k, causal, scale, v=v, dout=do, lse=lse, delta=delta,
+                    dk=dk, dv=dv)
+    p.out_f32 = int(gdt == torch.float32)
     _launch("flash_bwd_dkv", p, q.device)
     return dq, dk, dv
 

@@ -3,6 +3,7 @@ and its entry points run on the card unless asked for the CPU."""
 
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -15,7 +16,8 @@ PKG = ROOT / "ray_tpu_torch"
 
 
 def _py_files():
-    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                        ROOT / "chip_mutations.py"]
 
 
 def test_import_leaves_jax_and_ray_tpu_out():
@@ -88,3 +90,36 @@ def test_kernel_sources_ship():
     text = (ROOT / "pyproject.toml").read_text()
     assert '"ray_tpu_torch" = ["csrc/*"]' in text
     assert "ray_tpu_torch/_build/" in (ROOT / ".gitignore").read_text()
+
+
+def test_every_header_in_the_build_hash():
+    """An edit to any header a kernel includes must rebuild the kernels:
+    `_ext._target` hashes the sources and `_ext._HEADERS`."""
+    from ray_tpu_torch.ops import _ext
+
+    headers = sorted(p.name for p in _ext.CSRC.glob("*.cuh"))
+    assert headers and sorted(_ext._HEADERS) == headers
+    for src, _ in _ext.KERNELS.values():
+        for inc in re.findall(r'#include "([^"]+)"',
+                              (_ext.CSRC / src).read_text()):
+            assert inc in _ext._HEADERS, (src, inc)
+
+
+def test_flash_params_mirror_the_c_struct():
+    """ctypes passes FlashParams by layout: its fields must be the C
+    struct's, in order."""
+    from ray_tpu_torch.ops import _ext
+
+    text = (_ext.CSRC / "flash_common.cuh").read_text()
+    body = re.search(r"struct FlashParams \{(.*?)\};", text, re.S).group(1)
+    body = re.sub(r"//[^\n]*", "", body)
+    names = []
+    for decl in body.split(";"):
+        decl = decl.strip()
+        if not decl:
+            continue
+        # "const void* q", "long long q_sb, q_sh, q_ss", "int B, H, ..."
+        first, *rest = [part.strip() for part in decl.split(",")]
+        names.append(re.split(r"[\s*]+", first)[-1])
+        names += rest
+    assert names == [name for name, _ in _ext.FlashParams._fields_]
