@@ -40,6 +40,18 @@ MUTATIONS = {
         "it.n_iter = p.H / p.Hk * it.n_live;",
         "it.n_iter = (p.H / p.Hk - (p.H > p.Hk)) * it.n_live;",
         ("dk", "dv")),
+    # dQ drops dS K of every K/V tile that lands in ring slot 1
+    "dq_skip_dsk_of_ring_slot_1": (
+        "ray_tpu_torch/csrc/flash_bwd_dq.cu",
+        "wgmma_rs<COLS>(dq + c * COLS / 2, sa[kc],",
+        "if (s != 1) wgmma_rs<COLS>(dq + c * COLS / 2, sa[kc],",
+        ("dq",)),
+    # dQ keeps the scores above the causal diagonal on every tile
+    "dq_causal_mask_off": (
+        "ray_tpu_torch/csrc/flash_bwd_dq.cu",
+        "(!p.causal || col <= row + off)",
+        "(true || col <= row + off)",
+        ("dq",)),
 }
 
 READING = re.compile(

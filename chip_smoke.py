@@ -9,13 +9,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
 1. device: the card's name and power limit (nvidia-smi), torch/CUDA
    versions, then the build of the CUDA kernels from ``ray_tpu_torch/csrc``
    (one nvcc per source, in parallel), with its seconds and ptxas's
-   register, spill and wgmma-serialisation report; fails if the
-   warp-specialised kernels (forward, dK/dV) spill registers;
+   register, spill and wgmma-serialisation report; fails if any of the
+   warp-specialised kernels (forward, dQ, dK/dV) spills registers;
 2. kernels: each flash kernel (forward, backward dQ, backward dK/dV) against
    its plain PyTorch version on the same bf16 inputs on the card, at the
    GPT-2 medium attention shape (strided [B,S,H,D] views, as the model
    passes them), llama_1b's GQA shape, non-causal, S=300, S=1000 at
-   head_dim 128, S=129, q_len 128 against k_len 256, head_dim 32 and f32
+   head_dim 128, S=129, q_len 128 against k_len 256, q_len 256 against
+   k_len 128 at head_dim 128 (fully masked rows), head_dim 32 and f32
    inputs; then each kernel's time beside its bound, its plain version and
    the PyTorch library call, at the GPT-2 medium and the llama_1b shape;
 3. model check: a small GPT on the card with attention through the kernels
@@ -71,7 +72,7 @@ REPLACES = {
     "flash_bwd_dkv": "ray_tpu/ops/attention.py:235",
 }
 # the warp-specialised wgmma/TMA kernels, held to zero register spills
-HOPPER_KERNELS = ("flash_fwd", "flash_bwd_dkv")
+HOPPER_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 SOURCES = {
     "flash_fwd": "ray_tpu_torch/csrc/flash_fwd.cu",
     "flash_bwd_dq": "ray_tpu_torch/csrc/flash_bwd_dq.cu",
@@ -493,6 +494,8 @@ def run(args) -> int:
         ("S=129 B3 H4 D64", True, (3, 4, 4, 129, 129, 64, bf16, False)),
         ("q_len 128 k_len 256 B2 H16 D64", True,
          (2, 16, 16, 128, 256, 64, bf16, False)),
+        ("q_len 256 k_len 128 B1 H4 Hk2 D128 (fully masked rows)", True,
+         (1, 4, 2, 256, 128, 128, bf16, False)),
         ("D=32 llama_tiny B4 H4 Hk2 S256", True,
          (4, 4, 2, 256, 256, 32, bf16, True)),
         ("f32 inputs B2 H4 S256 D64", True,

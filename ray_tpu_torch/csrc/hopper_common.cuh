@@ -1,5 +1,5 @@
-// Hopper building blocks of the flash forward and dK/dV kernels: TMA tile
-// loads that complete on mbarriers, wgmma (warpgroup matrix multiply-
+// Hopper building blocks of the three flash kernels (forward, dQ, dK/dV):
+// TMA tile loads that complete on mbarriers, wgmma (warpgroup matrix multiply-
 // accumulate) with its shared-memory descriptors, the register hand-over
 // between warpgroups (setmaxnreg), and the host-side tensor maps.
 //
@@ -18,7 +18,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "flash_common.cuh"   // FlashParams, pack_bf16, acc_to_a
+#include "flash_common.cuh"   // FlashParams, pack_bf16, acc_to_a, quad_*
 
 namespace hopper {
 
@@ -192,12 +192,12 @@ __device__ __forceinline__ uint64_t opaque(uint64_t x) {
 
 // The accumulator of a 64xN wgmma holds, per thread of warp w (lane 4g+t),
 // rows 16w+g and 16w+g+8 at columns 8j+2t, 8j+2t+1: d[4j..4j+1] and
-// d[4j+2..4j+3], warp by warp the layout of mma.sync's m16n8 C fragment.
-// And the A registers of a 64x16 step are, warp by warp, mma.sync's m16k16
-// A fragment. So flash::acc_to_a(d + 8 kc, d + 8 kc + 4, a) turns the
-// 16-column chunk kc of an accumulator, rounded to bf16, into the A
-// registers of a k16 step: P and dS go from one product into the next
-// without shared memory.
+// d[4j+2..4j+3]. The A registers of a 64x16 step from registers hold, per
+// thread, the same rows at columns 2t, 2t+1 (a[0], a[1]: rows g, g+8) and
+// 2t+8, 2t+9 (a[2], a[3]). So flash::acc_to_a(d + 8 kc, d + 8 kc + 4, a)
+// turns the 16-column chunk kc of an accumulator, rounded to bf16, into
+// the A registers of a k16 step: P and dS go from one product into the
+// next without shared memory.
 
 // D (64xN f32) (+)= A * B, one k16 step; scale_d = 0 overwrites D. ss: A
 // and B from shared memory, both K-major (S = Q K^T, S^T = K Q^T,

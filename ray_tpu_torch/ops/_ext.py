@@ -53,7 +53,7 @@ class FlashParams(ctypes.Structure):
            for s in ("sb", "sh", "ss")]
         + [(n, ctypes.c_int) for n in ("B", "H", "Hk", "Sq", "Sk", "D")]
         + [("scale", ctypes.c_float), ("causal", ctypes.c_int),
-           ("in_f32", ctypes.c_int), ("out_f32", ctypes.c_int)]
+           ("out_f32", ctypes.c_int)]
     )
 
 

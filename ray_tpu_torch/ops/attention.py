@@ -179,9 +179,9 @@ def _kernel_view(t: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def _bf16_view(t: torch.Tensor, dtype) -> torch.Tensor:
-    """The tensor as the TMA kernels (forward, dK/dV) read it: bf16, 16-byte
-    aligned. f32 inputs are rounded to bf16 here (round to nearest even, as
-    the kernels' own rounding would), their strides kept."""
+    """The tensor as the TMA kernels read it: bf16, 16-byte aligned. f32
+    inputs are rounded to bf16 here (round to nearest even, as the
+    kernels' own rounding would), their strides kept."""
     t = _kernel_view(t, dtype)
     return t if dtype == torch.bfloat16 else \
         _kernel_view(t.to(torch.bfloat16), torch.bfloat16)
@@ -200,7 +200,6 @@ def _params(q, k, causal, scale, **tensors) -> _ext.FlashParams:
     p.B, p.H, p.Sq, p.D = q.shape
     p.Hk, p.Sk = k.shape[1], k.shape[2]
     p.scale, p.causal = float(scale), int(causal)
-    p.in_f32 = int(q.dtype == torch.float32)
     return p
 
 
@@ -281,7 +280,8 @@ def flash_bwd(q, k, v, out, lse, do, causal: bool = True,
             return dq, dk, dv
         return dq, dk.to(k.dtype), dv.to(v.dtype)
     dt = _kernel_dtype(q)
-    q, k, v, do = (_kernel_view(t, dt) for t in (q, k, v, do))
+    # both kernels read bf16 through TMA; outputs keep the caller's dtype
+    q, k, v, do = (_bf16_view(t, dt) for t in (q, k, v, do))
     # the dK/dV kernel reads both through 1-D tensor maps: 16-byte aligned
     lse, delta = (t.float().contiguous() for t in (lse, delta))
     lse, delta = (t.clone() if t.data_ptr() % 16 else t for t in (lse, delta))
@@ -295,13 +295,8 @@ def flash_bwd(q, k, v, out, lse, do, causal: bool = True,
         return dq.zero_(), dk.zero_(), dv.zero_()
     p = _params(q, k, causal, scale, v=v, dout=do, lse=lse, delta=delta,
                 dq=dq, dk=dk, dv=dv)
-    p.out_f32 = int(keep_f32)
-    _launch("flash_bwd_dq", p, q.device)
-    if dt == torch.float32:   # the dK/dV kernel reads bf16 through TMA
-        q, k, v, do = (_bf16_view(t, dt) for t in (q, k, v, do))
-        p = _params(q, k, causal, scale, v=v, dout=do, lse=lse, delta=delta,
-                    dk=dk, dv=dv)
     p.out_f32 = int(gdt == torch.float32)
+    _launch("flash_bwd_dq", p, q.device)
     _launch("flash_bwd_dkv", p, q.device)
     return dq, dk, dv
 
@@ -311,7 +306,7 @@ def flash_bwd(q, k, v, out, lse, do, causal: bool = True,
 # ---------------------------------------------------------------------------
 
 class FlashAttention(torch.autograd.Function):
-    """FlashAttention-2: forward kernel, backward dQ and dK/dV kernels.
+    """Flash attention: forward kernel, backward dQ and dK/dV kernels.
     Saves (q, k, v, out, lse), so recomputation under checkpointing
     re-launches only the forward kernel."""
 
@@ -332,7 +327,7 @@ class FlashAttention(torch.autograd.Function):
 
 def flash_attention(q, k, v, causal: bool = True,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """FlashAttention-2 with autograd. [B, H, S, D]; GQA via Hk | H."""
+    """Flash attention with autograd. [B, H, S, D]; GQA via Hk | H."""
     return FlashAttention.apply(q, k, v, causal, scale)
 
 

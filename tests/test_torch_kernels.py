@@ -64,8 +64,10 @@ SHAPES = {   # b, h, hk, s, sk, d, causal
     "q128_k256_d32": (2, 4, 2, 128, 256, 32, True),
     "non_causal": (2, 4, 4, 256, 256, 64, False),
     "fully_masked_rows": (1, 2, 2, 256, 128, 64, True),
-    # the edges of the 128-row q/kv tiles and the 64-row q ring tiles
+    # the edges of the 128-row q/kv tiles and the 64-row q and K/V tiles
     "s1": (2, 4, 2, 1, 1, 64, True),
+    "s65": (2, 4, 4, 65, 65, 64, True),
+    "q256_k128_d128": (1, 4, 2, 256, 128, 128, True),
     "s127": (2, 4, 4, 127, 127, 64, True),
     "s129": (2, 4, 4, 129, 129, 64, True),
     "s1000_d128": (1, 4, 2, 1000, 1000, 128, True),

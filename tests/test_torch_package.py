@@ -105,6 +105,21 @@ def test_every_header_in_the_build_hash():
             assert inc in _ext._HEADERS, (src, inc)
 
 
+def test_kernels_are_hopper_designs():
+    """Every kernel is built from the Hopper pieces (TMA, mbarriers, wgmma):
+    each source includes hopper_common.cuh, and no source under csrc/ uses
+    the pre-Hopper tensor-core or copy instructions."""
+    from ray_tpu_torch.ops import _ext
+
+    for src, _ in _ext.KERNELS.values():
+        text = (_ext.CSRC / src).read_text()
+        assert '#include "hopper_common.cuh"' in text, src
+    for path in _ext.CSRC.iterdir():
+        text = path.read_text()
+        for legacy in ("mma.sync", "ldmatrix", "cp.async.cg"):
+            assert legacy not in text, (path.name, legacy)
+
+
 def test_flash_params_mirror_the_c_struct():
     """ctypes passes FlashParams by layout: its fields must be the C
     struct's, in order."""
