@@ -19,28 +19,45 @@ Phases, each fatal on failure (non-zero exit, no result line):
    k_len 128 at head_dim 128 (fully masked rows), head_dim 32 and f32
    inputs; then each kernel's time beside its bound, its plain version and
    the PyTorch library call, at the GPT-2 medium and the llama_1b shape;
-3. model check: a small GPT on the card with attention through the kernels
-   against the same weights with the reference attention (loss and grads);
+3. model check: a small GPT and a small llama_tiny with 4 experts (top-2)
+   on the card with attention through the kernels against the same weights
+   with the reference attention (loss and grads; the reference run takes
+   the kernel run's expert choices); then ``moe_ffn`` on the
+   card against ``moe_ffn`` on the CPU in f32 at llama_1b's widths (routing
+   equal exactly, output within MOE_OUT_RTOL), overflow and tied-router
+   cases included;
 4. main path: gpt2_medium, batch 12 x seq 1024, remat "dots", 2 warm-up + 5
    timed train steps through GPT -> init_train_state -> make_train_step on
-   tokens from a seeded numpy generator; every loss finite, every kernel
-   launched in that run; step time, tokens/s, MFU.
+   tokens from a seeded numpy generator; every loss finite, each kernel
+   launched its expected count (2 forward per layer: the forward and the
+   remat recompute; 1 dQ, 1 dK/dV) in that run; step time, tokens/s, MFU;
+5. llama_1b at full width and depth, seq 2048, remat "dots", GQA 16/8 at
+   head_dim 128: the largest batch of LLAMA_BATCHES whose train step
+   leaves FREE_AT_PEAK_GB free, then the same steps and checks;
+6. llama_1b with 4 experts, top-2, at full width and depth, seq 2048, batch
+   from MOE_BATCHES the same way; also the load-balance loss (0.5-2.0 at
+   the first step), the overflow share and an MFU from the active work.
 
-Prints the kernels as one JSON line, then the card's name and power limit,
-and last ``{"ok": true, "device": {...}}``. Exits non-zero without a result
-when CUDA is missing or the package is not beside this script.
+``--profile PATH`` profiles two more steps of each train path and writes
+one table per path (PATH with the path's name before its suffix);
+``--skip-main`` skips phases 4-6. Prints the kernels as one JSON line, then
+the card's name and power limit, and last ``{"ok": true, "device":
+{...}}``. Exits non-zero without a result when CUDA is missing or the
+package is not beside this script.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 # H100 peaks (NVIDIA data sheet, dense, at the 700 W limit of the SXM part)
 PEAK_BF16_FLOPS = 989e12
@@ -65,6 +82,15 @@ KERNEL_TOL = {   # input dtype -> (norm_rtol, atol, lse_atol)
 # small model on the card, kernels against the reference attention
 MODEL_LOSS_RTOL = 1e-4   # |loss_k - loss_r| <= MODEL_LOSS_RTOL * |loss_r|
 MODEL_GRAD_RTOL = 2e-2   # per leaf ||g_k - g_r||_F <= this * ||g_r||_F
+# moe_ffn in f32 on the card against the CPU (TF32 off): products summed in
+# another order, ||out_gpu - out_cpu||_F <= this * ||out_cpu||_F
+MOE_OUT_RTOL = 1e-5
+
+# train paths: batches tried in order, each while the one before left at
+# least FREE_AT_PEAK_GB of the card's memory free at the step's peak
+FREE_AT_PEAK_GB = 8
+LLAMA_BATCHES = (4, 8, 12, 16, 24)
+MOE_BATCHES = (2, 4)
 
 REPLACES = {
     "flash_fwd": "ray_tpu/ops/attention.py:89",
@@ -295,19 +321,54 @@ def time_kernels(torch, A, tensors, causal, results=None):
     return timings
 
 
-# --- phase 3: small model, kernels vs reference attention ------------------
+# --- phase 3: small models, kernels vs reference attention; MoE -----------
 
 def model_check(torch, models):
     from ray_tpu_torch.models.gpt import GPTConfig
 
-    cfg = GPTConfig(vocab_size=512, n_layers=2, d_model=256, n_heads=4,
-                    max_seq_len=256, remat=False)
+    return {
+        "dense": kernels_vs_reference(torch, models, "dense", GPTConfig(
+            vocab_size=512, n_layers=2, d_model=256, n_heads=4,
+            max_seq_len=256, remat=False)),
+        "moe": kernels_vs_reference(
+            torch, models, "llama_tiny 4 experts top-2",
+            models.llama_tiny(n_experts=4, moe_top_k=2, remat=False)),
+    }
+
+
+def kernels_vs_reference(torch, models, name, cfg):
+    """Loss and grads of `cfg` with attention through the kernels against
+    the reference attention, same weights and tokens. With experts, the
+    reference run takes the kernel run's expert choices: a token whose two
+    best experts lie closer than the kernels' bf16 rounding may pick another
+    expert, a step in the function that no tolerance on a continuous error
+    covers. How many (token, k) choices would have differed is printed."""
+    from ray_tpu_torch.models import moe as moe_mod
+
     tokens = torch.from_numpy(_tokens(4, 200, cfg.vocab_size, seed=3)).cuda()
+    real_top_k = moe_mod.top_k_experts
+    chosen, flips = [], [0, 0]
+
+    def recording(probs, k):
+        vals, idx = real_top_k(probs, k)
+        chosen.append(idx)
+        return vals, idx
+
+    def replaying(probs, k):
+        idx = chosen[flips[1]]
+        flips[0] += int((real_top_k(probs, k)[1] != idx).sum())
+        flips[1] += 1
+        return probs.gather(-1, idx), idx
+
     out = {}
-    for impl in ("cuda", "reference"):
+    for impl, top_k in (("cuda", recording), ("reference", replaying)):
         c = dataclasses.replace(cfg, attention_impl=impl)
         m = models.GPT(c, seed=0)
-        loss, _ = m.loss({"tokens": tokens})
+        moe_mod.top_k_experts = top_k
+        try:
+            loss, _ = m.loss({"tokens": tokens})
+        finally:
+            moe_mod.top_k_experts = real_top_k
         loss.backward()
         out[impl] = (loss.item(), {n: p.grad for n, p in
                                    m.named_parameters()})
@@ -315,14 +376,74 @@ def model_check(torch, models):
     l_r, g_r = out["reference"]
     loss_rel = abs(l_k - l_r) / abs(l_r)
     worst, leaf = max((compare(g_k[n], g_r[n])[1], n) for n in g_r)
-    log(f"model check: loss kernels {l_k:.6f} reference {l_r:.6f}, relative "
-        f"gap {loss_rel:.3e} (<= {MODEL_LOSS_RTOL:.0e}); worst leaf {leaf} "
-        f"grad norm-relative err {worst:.3e} (<= {MODEL_GRAD_RTOL:.0e})")
+    routing = (f"; {flips[0]} of {sum(t.numel() for t in chosen)} (token, "
+               f"k) expert choices differ, the kernel run's taken"
+               if chosen else "")
+    log(f"model check [{name}]: loss kernels {l_k:.6f} reference "
+        f"{l_r:.6f}, relative gap {loss_rel:.3e} (<= {MODEL_LOSS_RTOL:.0e}); "
+        f"worst leaf {leaf} grad norm-relative err {worst:.3e} "
+        f"(<= {MODEL_GRAD_RTOL:.0e}){routing}")
     if not (math.isfinite(l_k) and loss_rel <= MODEL_LOSS_RTOL
             and worst <= MODEL_GRAD_RTOL):
-        raise SmokeFailure("small model: kernels disagree with reference")
+        raise SmokeFailure(f"small model [{name}]: kernels disagree with "
+                           "reference")
     return {"loss_rel": loss_rel, "worst_grad_norm_rel": worst,
-            "worst_leaf": leaf}
+            "worst_leaf": leaf, "expert_choices_differing": flips[0]}
+
+
+def moe_check(torch):
+    """moe_ffn on the card against moe_ffn on the CPU, f32, same inputs:
+    512 tokens at llama_1b's widths (d 2048, 4 experts of f 5632). Expert
+    choice, slots and `fits` equal exactly; the output normwise within
+    MOE_OUT_RTOL; aux loss and overflow printed beside each other."""
+    import numpy as np
+    from ray_tpu_torch.models.moe import capacity, moe_ffn, route
+
+    b, s, d, e, f = 2, 256, 2048, 4, 5632
+    rng = np.random.default_rng(4)
+    std = 0.02
+    x = rng.standard_normal((b, s, d), dtype=np.float32)
+    router = rng.standard_normal((d, e), dtype=np.float32) * std
+    w_up = rng.standard_normal((e, d, f), dtype=np.float32) * std
+    w_gate = rng.standard_normal((e, d, f), dtype=np.float32) * std
+    w_down = rng.standard_normal((e, f, d), dtype=np.float32) * (
+        std / math.sqrt(32))
+    cases = {"top-2 cf 1.25": (2, 1.25, router),
+             "overflow top-2 cf 0.5": (2, 0.5, router),
+             "top-1 cf 1.0": (1, 1.0, router),
+             "zero router (ties) top-2 cf 1.25": (2, 1.25, 0 * router)}
+    out, bad = {}, []
+    for name, (k, cf, rw) in cases.items():
+        res = {}
+        for dev in ("cpu", "cuda"):
+            t = [torch.from_numpy(a).to(dev)
+                 for a in (x, rw, w_up, w_gate, w_down)]
+            r = route(t[0].reshape(b * s, d), t[1], k,
+                      capacity(b * s, e, k, cf))
+            y, m = moe_ffn(*t, top_k=k, capacity_factor=cf,
+                           dtype=torch.float32)
+            res[dev] = ({n: r[n].cpu() for n in ("expert_idx", "slot",
+                                                  "fits")},
+                        y.cpu(), {n: v.item() for n, v in m.items()})
+        (r_c, y_c, m_c), (r_g, y_g, m_g) = res["cpu"], res["cuda"]
+        same = all(torch.equal(r_c[n], r_g[n]) for n in r_c)
+        rel = ((y_g - y_c).norm() / y_c.norm()).item()
+        log(f"moe check [{name}]: routing equal {same}; output "
+            f"norm-relative err {rel:.3e} (<= {MOE_OUT_RTOL:.0e}); aux "
+            f"{m_g['moe_aux_loss']:.7f} (cpu {m_c['moe_aux_loss']:.7f}); "
+            f"overflow {m_g['moe_overflow']:.6f} (cpu "
+            f"{m_c['moe_overflow']:.6f})")
+        if not (same and rel <= MOE_OUT_RTOL and torch.isfinite(y_g).all()):
+            bad.append(name)
+        out[name] = {"routing_equal": same, "out_norm_rel": rel,
+                     "overflow": m_g["moe_overflow"],
+                     "aux": m_g["moe_aux_loss"]}
+    if out["overflow top-2 cf 0.5"]["overflow"] <= 0:
+        bad.append("the overflow case dropped nothing")
+    if bad:
+        raise SmokeFailure(f"moe_ffn on the card disagrees with the CPU: "
+                           f"{bad}")
+    return out
 
 
 def _tokens(b, s, vocab, seed):
@@ -331,19 +452,37 @@ def _tokens(b, s, vocab, seed):
                                                 dtype=np.int64)
 
 
-# --- phase 4: the main path --------------------------------------------------
+# --- phases 4-6: train paths -------------------------------------------------
 
-def profile_steps(torch, step, state, batch_dict, path, step_ms, n=2):
+def kernel_class(name: str) -> str:
+    name = name.lower()
+    if "flash_" in name:
+        return "flash kernels"
+    if any(w in name for w in ("gemm", "xmma", "cutlass", "matmul", "nvjet",
+                               "sm90_")):
+        return "matrix products"
+    return "other"
+
+
+def profile_steps(torch, step, state, batch_dict, path, step_ms, n=2,
+                  moe_dims=None):
     """Device time by kernel class over `n` more steps (torch.profiler),
     the full table written to `path`; returns the per-step summary. The
     idle share is taken against `step_ms`, the step time measured without
-    the profiler (whose host overhead stretches the profiled steps)."""
+    the profiler (whose host overhead stretches the profiled steps).
+
+    `moe_dims` = (tokens T, capacity C, experts x capacity E*C) adds the
+    class "MoE dispatch and combine": the kernels of every op that has an
+    input with a dimension E*C, or of shape [T, ..., C] (building the
+    [T, E, C] dispatch and combine tensors, and the products with them,
+    forward and backward). The per-expert products ([E, C, *]) stay matrix
+    products."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=moe_dims is not None) as prof:
         for _ in range(n):
             state, _ = step(state, batch_dict)
         torch.cuda.synchronize()
@@ -352,64 +491,182 @@ def profile_steps(torch, step, state, batch_dict, path, step_ms, n=2):
     for evt in prof.key_averages():
         if evt.device_type.name != "CUDA":
             continue
-        us = evt.self_device_time_total
-        name = evt.key.lower()
-        if "flash_" in name:
-            classes["flash kernels"] += us
-        elif any(w in name for w in ("gemm", "xmma", "cutlass", "matmul",
-                                     "nvjet", "sm90_")):
-            classes["matrix products"] += us
-        else:
-            classes["other"] += us
+        classes[kernel_class(evt.key)] += evt.self_device_time_total
+    if moe_dims is not None:
+        n_tok, cap, ec = moe_dims
+        moe = 0.0
+        for evt in prof.events():
+            if evt.device_type.name != "CPU" or not any(
+                    ec in shape or (shape[0] == n_tok and shape[-1] == cap)
+                    for shape in evt.input_shapes or () if shape):
+                continue
+            for kern in evt.kernels:
+                cls = kernel_class(kern.name)
+                if cls != "flash kernels":
+                    classes[cls] -= kern.duration
+                    moe += kern.duration
+        classes["MoE dispatch and combine"] = moe
     per_step = {k: v / 1e3 / n for k, v in classes.items()}
     busy = sum(per_step.values())
     with open(path, "w") as f:
         f.write(prof.key_averages().table(
             sort_by="self_device_time_total", row_limit=60))
     idle = max(0.0, 1 - busy / step_ms)
-    log(f"profile ({n} steps): device busy {busy:.1f} ms/step, idle share "
-        f"{idle:.3f} of the unprofiled {step_ms:.1f} ms step (profiled wall "
-        f"{wall_ms:.1f} ms/step); by class " + ", ".join(
+    log(f"profile ({n} steps, {path}): device busy {busy:.1f} ms/step, idle "
+        f"share {idle:.3f} of the unprofiled {step_ms:.1f} ms step (profiled "
+        f"wall {wall_ms:.1f} ms/step); by class " + ", ".join(
             f"{k} {v:.1f} ms" for k, v in per_step.items()))
     return {"profiled_wall_ms": wall_ms, "busy_ms": busy,
             "idle_share": idle, "by_class_ms": per_step}
 
 
-def main_path(torch, A, models, smi_name, batch=12, seq=1024, warmup=2,
-              steps=5, profile_path=None):
+def pick_batch(torch, step, state, cfg, batches, name):
+    """The largest of `batches`, tried in order, whose train step leaves
+    FREE_AT_PEAK_GB of the card free at its peak (reserved memory); stops
+    at the first that does not, or that runs out of memory. A tried step
+    runs at the schedule's count 0, where lr = 0, so the params do not
+    move; the moments and counts go back to the start after it."""
+    total = torch.cuda.mem_get_info()[1]
+    chosen, tried = None, []
+    for b in batches:
+        tokens = torch.from_numpy(_tokens(b, cfg.max_seq_len, cfg.vocab_size,
+                                          seed=1)).cuda()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        oom = False
+        try:
+            step(state, {"tokens": tokens})
+            torch.cuda.synchronize()
+        except torch.cuda.OutOfMemoryError:
+            oom = True
+        for p in state.params.values():
+            p.grad = None
+        opt = state.opt_state
+        torch._foreach_zero_(list(opt["mu"].values()))
+        torch._foreach_zero_(list(opt["nu"].values()))
+        opt["count"] = 0
+        state.step = 0
+        del tokens
+        if oom:
+            tried.append({"batch": b, "out_of_memory": True})
+            log(f"{name}: batch {b} ran out of memory")
+            break
+        free = (total - torch.cuda.max_memory_reserved()) / 1e9
+        tried.append({"batch": b, "out_of_memory": False,
+                      "peak_allocated_gb":
+                          torch.cuda.max_memory_allocated() / 1e9,
+                      "peak_reserved_gb":
+                          torch.cuda.max_memory_reserved() / 1e9,
+                      "free_at_peak_gb": free})
+        log(f"{name}: batch {b}: peak allocated "
+            f"{tried[-1]['peak_allocated_gb']:.2f} GB, reserved "
+            f"{tried[-1]['peak_reserved_gb']:.2f} GB, free at peak "
+            f"{free:.2f} GB of {total / 1e9:.2f} GB")
+        if free < FREE_AT_PEAK_GB:
+            break
+        chosen = b
+    gc.collect()
+    torch.cuda.empty_cache()
+    if chosen is None:
+        raise SmokeFailure(f"{name}: no batch of {batches} leaves "
+                           f"{FREE_AT_PEAK_GB} GB free: {tried}")
+    log(f"{name}: batches tried {[t['batch'] for t in tried]}, chose "
+        f"{chosen}")
+    return chosen, tried
+
+
+def moe_overflow(torch, model, tokens):
+    """Mean over layers of moe_ffn's overflow share on `tokens`, from one
+    forward without gradients: the block drops it, as the JAX block does,
+    so a wrapper around moe_ffn reads it."""
+    from ray_tpu_torch.models import gpt as G
+
+    real, seen = G.moe_ffn, []
+
+    def reading(*args, **kw):
+        out, m = real(*args, **kw)
+        seen.append(m["moe_overflow"])
+        return out, m
+
+    G.moe_ffn = reading
+    try:
+        with torch.no_grad():
+            model.forward_with_aux(tokens)
+    finally:
+        G.moe_ffn = real
+    return float(torch.stack(seen).mean())
+
+
+def moe_active_flops(cfg, n_tokens):
+    """Train flops per token of the work the MoE model does for it, and
+    the formula: 6 x the active params (attention, top_k of the experts,
+    router), 12·L·d·S of attention scores, 6·d·V of the head, and 12·L·E·C·d
+    of the dispatch and combine products (2·E·C·d each per token forward)."""
+    from ray_tpu_torch.models.moe import capacity
+
+    d, f, L, S, V = (cfg.d_model, cfg.ff_dim, cfg.n_layers, cfg.max_seq_len,
+                     cfg.vocab_size)
+    E, K = cfg.n_experts, cfg.moe_top_k
+    C = capacity(n_tokens, E, K, cfg.moe_capacity_factor)
+    hd, h, hk = cfg.head_dim, cfg.n_heads, cfg.kv_heads
+    attn = d * h * hd + 2 * d * hk * hd + h * hd * d
+    flops = (6.0 * L * (attn + K * 3 * d * f + d * E) + 12 * L * d * S
+             + 6 * d * V + 12.0 * L * E * C * d)
+    return flops, (f"6*L*(attn {attn} + k*3*d*f + d*E) + 12*L*d*S + 6*d*V "
+                   f"+ 12*L*E*C*d with L={L} d={d} f={f} E={E} k={K} C={C} "
+                   f"S={S} V={V}")
+
+
+def train_path(torch, A, models, smi_name, name, cfg, batches, warmup=2,
+               steps=5, profile_path=None):
+    """Train steps of `cfg` at seq cfg.max_seq_len through GPT ->
+    init_train_state -> make_train_step on tokens from a seeded numpy
+    generator: the batch from `batches` (pick_batch when there are
+    several), then `warmup` + `steps` steps with the launch counts set to 0
+    just before and read just after. Returns (counts, result)."""
+    from ray_tpu_torch.models.moe import capacity
     from ray_tpu_torch.models.training import flops_per_token
 
-    cfg = models.gpt2_medium(max_seq_len=seq, remat_policy="dots")
+    seq = cfg.max_seq_len
     t0 = time.perf_counter()
     model = models.GPT(cfg, seed=0)
     opt = models.make_optimizer(total_steps=steps + warmup)
     state = models.init_train_state(model, opt)
     step = models.make_train_step(model, opt)
+    torch.cuda.synchronize()
+    log(f"{name}: {cfg.n_params / 1e6:.1f}M params built in "
+        f"{time.perf_counter() - t0:.1f}s")
+    tried = None
+    batch = batches[0]
+    if len(batches) > 1:
+        batch, tried = pick_batch(torch, step, state, cfg, batches, name)
     tokens = torch.from_numpy(_tokens(batch, seq, cfg.vocab_size,
                                       seed=1)).cuda()
     batch_dict = {"tokens": tokens}
-    torch.cuda.synchronize()
-    log(f"main path: gpt2_medium ({cfg.n_params / 1e6:.1f}M params) built "
-        f"in {time.perf_counter() - t0:.1f}s")
+    moe = cfg.n_experts > 0
+    result = {"batch": batch, "seq": seq, "batches_tried": tried}
+    if moe:
+        result["overflow_at_init"] = moe_overflow(torch, model, tokens)
 
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     A.reset_launch_counts()
-    losses, grad_norms = [], []
+    metrics = []
     for _ in range(warmup):
         state, m = step(state, batch_dict)
-        losses.append(m["loss"])
-        grad_norms.append(m["grad_norm"])
+        metrics.append(m)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(steps):
         state, m = step(state, batch_dict)
-        losses.append(m["loss"])
-        grad_norms.append(m["grad_norm"])
+        metrics.append(m)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = dict(A.launches)
-    losses = [float(x) for x in losses]
-    grad_norms = [float(x) for x in grad_norms]
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(m["loss"]) for m in metrics]
+    grad_norms = [float(m["grad_norm"]) for m in metrics]
     n_steps = warmup + steps
 
     step_s = dt / steps
@@ -417,28 +674,58 @@ def main_path(torch, A, models, smi_name, batch=12, seq=1024, warmup=2,
     peak = next((v for k, v in MFU_PEAK if k in smi_name), PEAK_BF16_FLOPS)
     mfu = tok_s * flops_per_token(cfg) / peak
     per_step = {k: v / n_steps for k, v in counts.items()}
-    log(f"main path: losses {losses}; grad_norm {grad_norms}")
-    log(f"main path: step {step_s * 1e3:.1f} ms, {tok_s:.0f} tokens/s, MFU "
-        f"{mfu:.4f} (peak {peak / 1e12:.0f} TFLOP/s), peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, kernel "
-        f"launches per step {per_step}")
+    log(f"{name}: losses {losses}; grad_norm {grad_norms}")
+    log(f"{name}: batch {batch} x seq {seq}, step {step_s * 1e3:.1f} ms, "
+        f"{tok_s:.0f} tokens/s, MFU {mfu:.4f} by flops_per_token (peak "
+        f"{peak / 1e12:.0f} TFLOP/s), peak memory {peak_gib:.2f} GiB, "
+        f"kernel launches per step {per_step}")
+    result.update({"step_ms": step_s * 1e3, "tokens_per_s": tok_s,
+                   "mfu": mfu, "mfu_peak_flops": peak, "losses": losses,
+                   "grad_norms": grad_norms, "launches_per_step": per_step,
+                   "peak_mem_gib": peak_gib})
     if not all(math.isfinite(x) for x in losses + grad_norms):
-        raise SmokeFailure(f"non-finite loss or grad norm: {losses}")
-    # random init: the first loss is close to ln(vocab)
+        raise SmokeFailure(f"{name}: non-finite loss or grad norm: {losses}")
+    # random init: the first loss is close to ln(vocab) (with experts, plus
+    # 0.01 x a load-balance loss near 1)
     if abs(losses[0] - math.log(cfg.vocab_size)) > 0.5:
-        raise SmokeFailure(f"first loss {losses[0]} far from "
+        raise SmokeFailure(f"{name}: first loss {losses[0]} far from "
                            f"ln(V)={math.log(cfg.vocab_size):.3f}")
-    missing = [k for k, v in counts.items() if v == 0]
-    if missing:
-        raise SmokeFailure(f"kernels never launched on the main path: "
-                           f"{missing}")
-    result = {"step_ms": step_s * 1e3, "tokens_per_s": tok_s, "mfu": mfu,
-              "mfu_peak_flops": peak, "losses": losses,
-              "grad_norms": grad_norms, "launches_per_step": per_step,
-              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    # per layer and step: the forward twice (forward and remat recompute),
+    # dQ and dK/dV once
+    fwd = 2 if cfg.remat else 1
+    expected = {"flash_fwd": fwd * cfg.n_layers,
+                "flash_bwd_dq": cfg.n_layers, "flash_bwd_dkv": cfg.n_layers}
+    wrong = {k: v for k, v in counts.items() if v != expected[k] * n_steps}
+    if wrong:
+        raise SmokeFailure(f"{name}: kernel launches {wrong} in {n_steps} "
+                           f"steps, expected {expected} per step")
+    if moe:
+        aux = [float(m["moe_aux_loss"]) for m in metrics]
+        active, formula = moe_active_flops(cfg, batch * seq)
+        mfu_active = tok_s * active / peak
+        result.update({"moe_aux_loss": aux, "mfu_active": mfu_active,
+                       "active_flops_per_token": active,
+                       "overflow_after": moe_overflow(torch, model, tokens)})
+        log(f"{name}: moe_aux_loss {aux}; overflow share at init "
+            f"{result['overflow_at_init']:.4f}, after {n_steps} steps "
+            f"{result['overflow_after']:.4f}; MFU from the active work "
+            f"{mfu_active:.4f} = tokens/s x {active / 1e9:.3f} GFLOP/token "
+            f"/ peak, GFLOP/token = {formula}")
+        if not 0.5 < aux[0] < 2.0:
+            raise SmokeFailure(f"{name}: first load-balance loss {aux[0]} "
+                               "outside (0.5, 2.0)")
     if profile_path:
-        result["profile"] = profile_steps(torch, step, state, batch_dict,
-                                          profile_path, step_s * 1e3)
+        moe_dims = None
+        if moe:
+            n_tok = batch * seq
+            cap = capacity(n_tok, cfg.n_experts, cfg.moe_top_k,
+                           cfg.moe_capacity_factor)
+            moe_dims = (n_tok, cap, cfg.n_experts * cap)
+        path = Path(profile_path)
+        result["profile"] = profile_steps(
+            torch, step, state, batch_dict,
+            path.with_name(f"{path.stem}.{name}{path.suffix}"),
+            step_s * 1e3, moe_dims=moe_dims)
     return counts, result
 
 
@@ -519,17 +806,38 @@ def run(args) -> int:
     del timed
     torch.cuda.empty_cache()
 
-    # phase 3: small model against the reference attention
+    # phase 3: small models against the reference attention; moe_ffn
     model = model_check(torch, models)
+    model["moe_ffn"] = moe_check(torch)
+    torch.cuda.empty_cache()
 
-    # phase 4: main path; with --skip-main no launch was counted (null)
-    counts, main = ({k: None for k in A.launches}, None) if args.skip_main \
-        else main_path(torch, A, models, smi, profile_path=args.profile)
+    # phases 4-6: the train paths, each with the launch counts set to 0 just
+    # before its timed steps and read just after; with --skip-main none runs
+    # and no launch was counted (null)
+    paths = {
+        "gpt2_medium": (models.gpt2_medium(max_seq_len=1024,
+                                           remat_policy="dots"), (12,)),
+        "llama_1b": (models.llama_1b(remat_policy="dots"), LLAMA_BATCHES),
+        "llama_1b_moe": (models.llama_1b(n_experts=4, moe_top_k=2,
+                                         remat_policy="dots"), MOE_BATCHES),
+    }
+    by_path, main = {}, {}
+    for name, (cfg, batches) in paths.items():
+        if args.skip_main:
+            by_path[name] = {k: None for k in A.launches}
+            continue
+        by_path[name], main[name] = train_path(
+            torch, A, models, smi, name, cfg, batches,
+            profile_path=args.profile)
+        gc.collect()
+        torch.cuda.empty_cache()
     if args.skip_main:
-        log("main path: skipped (--skip-main)")
+        log("train paths: skipped (--skip-main)")
 
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
-                "replaces": REPLACES[name], "launches": counts[name],
+                "replaces": REPLACES[name],
+                "launches": by_path["gpt2_medium"][name],
+                "launches_by_path": {p: c[name] for p, c in by_path.items()},
                 **{k: results[name][k] for k in
                    ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms")}}
@@ -556,10 +864,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the results to this JSON file")
     ap.add_argument("--profile", metavar="PATH",
-                    help="after the main path, profile two more steps and "
-                    "write torch.profiler's table to PATH")
+                    help="after each train path, profile two more steps and "
+                    "write torch.profiler's table to PATH with the path's "
+                    "name before the suffix")
     ap.add_argument("--skip-main", action="store_true",
-                    help="skip the gpt2_medium train steps (debugging)")
+                    help="skip the train paths, phases 4-6 (debugging)")
     args = ap.parse_args()
     try:
         return run(args)

@@ -2,7 +2,9 @@
 
 Flagship: ``gpt.py`` covers the GPT-2 and Llama families through config
 switches, with the JAX model's parameter layout (``convert.py`` loads a
-JAX checkpoint). Training step + optimizer live in ``training.py``.
+JAX checkpoint; ``moe.py`` is the mixture-of-experts FFN that
+``n_experts > 0`` selects). Training step + optimizer live in
+``training.py``.
 """
 
 from .gpt import (  # noqa: F401
@@ -15,6 +17,7 @@ from .gpt import (  # noqa: F401
     llama_1b,
     llama_7b,
 )
+from .moe import moe_ffn  # noqa: F401
 from .training import (  # noqa: F401
     TrainState,
     make_optimizer,

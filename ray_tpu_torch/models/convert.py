@@ -2,7 +2,8 @@
 
 The JAX model (``ray_tpu/models/gpt.py``, ``GPT.init``) stacks each block
 parameter over layers as ``[L, ...]``; the port keeps every per-layer
-tensor in the same layout, so the mapping only unstacks.
+tensor in the same layout, so the mapping only unstacks (MoE's ``router``,
+``w_up``, ``w_gate`` and ``w_down`` keep their expert axis).
 """
 
 from __future__ import annotations
@@ -17,8 +18,6 @@ def params_from_jax(params: Mapping[str, Any], config) -> Dict[str, torch.Tensor
     """`params`: the JAX pytree with numpy arrays as leaves (``{"tok_embed",
     "blocks": {name: [L, ...]}, "norm_f", ...}``) -> a state dict for
     `ray_tpu_torch.models.GPT(config)` (``load_state_dict``)."""
-    if config.n_experts > 0:
-        raise NotImplementedError("mixture-of-experts is not ported yet")
     L = config.n_layers
     state: Dict[str, torch.Tensor] = {}
     for name, value in params.items():

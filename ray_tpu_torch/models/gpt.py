@@ -12,9 +12,9 @@ layout of one slice of the stacked tree (``wq [d, h, hd]``,
 ``wo [h, hd, d]``, ...), so a JAX checkpoint loads by unstacking only
 (`ray_tpu_torch.models.convert.params_from_jax`).
 
-Single device and dense: mixture-of-experts, pipeline and the mesh axes
-(dp/fsdp/tp/sp) are later slices of the port; MoE and pipeline settings
-raise here.
+Single device: the mixture-of-experts FFN (``n_experts > 0``, `moe.py`)
+runs without expert parallelism; pipeline and the mesh axes (dp/fsdp/tp/
+sp/ep) are later slices of the port, and a pipeline setting raises here.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..ops.attention import dot_product_attention
+from .moe import moe_ffn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,8 +49,9 @@ class GPTConfig:
     positions: str = "learned"        # "learned" | "rope"
     rope_theta: float = 10000.0
     tie_embeddings: bool = True
-    # pipeline / mixture-of-experts: later slices of the port (must be 0)
+    # pipeline: a later slice of the port (must be 0)
     pp_microbatches: int = 0
+    # mixture-of-experts FFN (moe.py) in every block when n_experts > 0
     n_experts: int = 0
     moe_top_k: int = 2
     moe_capacity_factor: float = 1.25
@@ -152,7 +154,8 @@ def resolve_device(device) -> torch.device:
 
 def _dots_policy(ctx, op, *args, **kwargs):
     # JAX's dots_with_no_batch_dims_saveable: keep the 2-D products (the
-    # projections, aten.mm); recompute everything else, attention included.
+    # projections and MoE's router, dispatch and combine, aten.mm);
+    # recompute everything else, attention and the per-expert bmm included.
     if op is torch.ops.aten.mm.default:
         return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE
@@ -195,10 +198,17 @@ class Block(nn.Module):
         self.wk = normal(d, hk, hd)
         self.wv = normal(d, hk, hd)
         self.wo = normal(h, hd, d, s=resid_std)
-        self.w_up = normal(d, f)
-        self.w_down = normal(f, d, s=resid_std)
-        if c.activation == "swiglu":
-            self.w_gate = normal(d, f)
+        if c.n_experts > 0:
+            E = c.n_experts
+            self.router = normal(d, E)
+            self.w_up = normal(E, d, f)
+            self.w_gate = normal(E, d, f)
+            self.w_down = normal(E, f, d, s=resid_std)
+        else:
+            self.w_up = normal(d, f)
+            self.w_down = normal(f, d, s=resid_std)
+            if c.activation == "swiglu":
+                self.w_gate = normal(d, f)
         if c.norm == "layernorm":
             self.bias1 = const(0.0, d)
             self.bias2 = const(0.0, d)
@@ -215,9 +225,8 @@ class GPT(nn.Module):
     def __init__(self, config: GPTConfig, device="cuda", seed: int = 0):
         super().__init__()
         c = config
-        if c.n_experts > 0:
-            raise NotImplementedError("mixture-of-experts is not ported yet")
         if c.pp_microbatches:
+            # with experts too: JAX refuses EP+PP combined as well
             raise NotImplementedError("pipeline parallelism is not ported yet")
         if c.remat and c.remat_policy not in _REMAT_CONTEXTS:
             raise ValueError(
@@ -286,7 +295,8 @@ class GPT(nn.Module):
         return out.view(*lead, *w.shape[1:])
 
     def _block(self, blk: Block, x, positions):
-        """One transformer block. x: [B, S, D] in the activation dtype."""
+        """One transformer block. x: [B, S, D] in the activation dtype ->
+        (x, MoE load-balance loss, or None for a dense block)."""
         c = self.config
         dt = c.dtype
         h = self._norm(x, blk.norm1, getattr(blk, "bias1", None))
@@ -305,12 +315,18 @@ class GPT(nn.Module):
         x = x + self._proj(attn, blk.wo.to(dt).reshape(-1, c.d_model))
 
         h = self._norm(x, blk.norm2, getattr(blk, "bias2", None))
+        if c.n_experts > 0:
+            down, moe = moe_ffn(h, blk.router, blk.w_up, blk.w_gate,
+                                blk.w_down, top_k=c.moe_top_k,
+                                capacity_factor=c.moe_capacity_factor,
+                                dtype=dt)
+            return x + down, moe["moe_aux_loss"]
         up = self._proj(h, blk.w_up.to(dt))
         if c.activation == "swiglu":
             act = F.silu(self._proj(h, blk.w_gate.to(dt))) * up
         else:
             act = F.gelu(up, approximate="tanh")
-        return x + self._proj(act, blk.w_down.to(dt))
+        return x + self._proj(act, blk.w_down.to(dt)), None
 
     def _run_block(self, blk, x, positions):
         c = self.config
@@ -326,7 +342,8 @@ class GPT(nn.Module):
     def forward_with_aux(self, tokens: torch.Tensor,
                          positions: Optional[torch.Tensor] = None
                          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """tokens [B, S] int -> (logits [B, S, V] f32, aux losses)."""
+        """tokens [B, S] int -> (logits [B, S, V] f32, {"moe_aux_loss": the
+        mean over layers of the MoE load-balance loss, 0 when dense})."""
         c = self.config
         if positions is None:
             positions = torch.arange(tokens.shape[1], device=tokens.device
@@ -334,13 +351,16 @@ class GPT(nn.Module):
         x = F.embedding(tokens, self.tok_embed.to(c.dtype))
         if c.positions == "learned":
             x = x + F.embedding(positions, self.pos_embed.to(c.dtype))
+        aux = []
         for blk in self.blocks:
-            x = self._run_block(blk, x, positions)
+            x, layer_aux = self._run_block(blk, x, positions)
+            aux.append(layer_aux)
         x = self._norm(x, self.norm_f, getattr(self, "bias_f", None))
         head = (self.tok_embed.t() if c.tie_embeddings else self.lm_head)
         logits = self._proj(x, head.to(c.dtype))
-        return logits.float(), {
-            "moe_aux_loss": torch.zeros((), device=logits.device)}
+        aux_loss = (torch.stack(aux).mean() if c.n_experts > 0 else
+                    torch.zeros((), device=logits.device))
+        return logits.float(), {"moe_aux_loss": aux_loss}
 
     def apply(self, tokens, positions=None) -> torch.Tensor:
         """tokens: [B, S] → logits [B, S, V] (f32)."""
@@ -357,7 +377,7 @@ class GPT(nn.Module):
         """
         c = self.config
         tokens = batch["tokens"]
-        logits, _ = self.forward_with_aux(tokens)
+        logits, aux = self.forward_with_aux(tokens)
         targets = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])],
                             dim=1)
         mask = torch.ones(tokens.shape, device=tokens.device)
@@ -376,4 +396,8 @@ class GPT(nn.Module):
             "ppl_log": ((nll * mask).sum() / total).detach(),
             "tokens": mask.sum(),
         }
+        if c.n_experts > 0:
+            loss = loss + c.moe_aux_coeff * aux["moe_aux_loss"]
+            metrics["moe_aux_loss"] = aux["moe_aux_loss"].detach()
+            metrics["loss"] = loss.detach()
         return loss, metrics

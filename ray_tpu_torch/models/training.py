@@ -13,8 +13,9 @@ by hand with optax's semantics for
   read at the update count before it is incremented, so the first update
   has lr = 0.
 
-The step updates parameters and moments in place (the JAX step donates its
-state buffers for the same reason: one copy of the state in memory).
+The step updates parameters and moments in place, and clips the gradients
+in their own buffers (the JAX step donates its state buffers, and XLA fuses
+the update, for the same reason: one copy of the state in memory).
 """
 
 from __future__ import annotations
@@ -65,7 +66,10 @@ class Optimizer:
     def update_(self, params: Params, grads: List[torch.Tensor],
                 state: Dict) -> torch.Tensor:
         """One clipped AdamW update, in place. Returns the global norm of
-        the unclipped grads (a 0-d tensor; no host sync)."""
+        the unclipped grads (a 0-d tensor; no host sync). `grads` are
+        clipped in place, so their values are spent; the rest of the update
+        runs in chunks of at most `_CHUNK_NUMEL` elements (or one larger
+        tensor), which bounds its temporaries to two such chunks."""
         names = list(params)
         p = [params[n] for n in names]
         mu = [state["mu"][n] for n in names]
@@ -75,23 +79,42 @@ class Optimizer:
         # optax: select(g_norm < c, g, g / g_norm * c)
         clip = torch.where(g_norm < self.grad_clip, torch.ones_like(g_norm),
                            self.grad_clip / g_norm)
-        g = torch._foreach_mul(grads, clip)
+        torch._foreach_mul_(grads, clip)
         count = state["count"] + 1
-        torch._foreach_lerp_(mu, g, 1 - self.b1)          # b1*mu + (1-b1)*g
+        torch._foreach_lerp_(mu, grads, 1 - self.b1)      # b1*mu + (1-b1)*g
         torch._foreach_mul_(nu, self.b2)
-        torch._foreach_addcmul_(nu, g, g, value=1 - self.b2)
-        mu_hat = torch._foreach_div(mu, 1 - self.b1 ** count)
-        denom = torch._foreach_div(nu, 1 - self.b2 ** count)
-        torch._foreach_sqrt_(denom)
-        torch._foreach_add_(denom, self.eps)
-        upd = torch._foreach_div(mu_hat, denom)
-        if self.weight_decay:
-            torch._foreach_add_(upd, p, alpha=self.weight_decay)
+        torch._foreach_addcmul_(nu, grads, grads, value=1 - self.b2)
         lr = self.lr(state["count"])
-        if lr:
-            torch._foreach_add_(p, upd, alpha=-lr)
+        for lo, hi in _chunks(p):
+            upd = torch._foreach_div(mu[lo:hi], 1 - self.b1 ** count)
+            denom = torch._foreach_div(nu[lo:hi], 1 - self.b2 ** count)
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, self.eps)
+            torch._foreach_div_(upd, denom)                # mu_hat / denom
+            if self.weight_decay:
+                torch._foreach_add_(upd, p[lo:hi], alpha=self.weight_decay)
+            if lr:
+                torch._foreach_add_(p[lo:hi], upd, alpha=-lr)
         state["count"] = count
         return g_norm
+
+
+# Elements per chunk of `Optimizer.update_` (2**26: 256 MiB of f32)
+_CHUNK_NUMEL = 1 << 26
+
+
+def _chunks(tensors: List[torch.Tensor]) -> List[Tuple[int, int]]:
+    """[lo, hi) runs of consecutive `tensors` of at most `_CHUNK_NUMEL`
+    elements together; a larger tensor is a run of its own."""
+    runs, lo, size = [], 0, 0
+    for i, t in enumerate(tensors):
+        if i > lo and size + t.numel() > _CHUNK_NUMEL:
+            runs.append((lo, i))
+            lo, size = i, 0
+        size += t.numel()
+    if tensors:
+        runs.append((lo, len(tensors)))
+    return runs
 
 
 def make_optimizer(learning_rate: float = 3e-4,

@@ -32,9 +32,16 @@ GPT2_FAMILY = dict(vocab_size=512, n_layers=2, d_model=128, n_heads=4,
                    positions="learned", tie_embeddings=True)
 
 
+# the mixture-of-experts block (tests/test_models_parallel.py:32)
+MOE = dict(n_experts=4, moe_top_k=2)
+FAMILIES = ["llama_tiny", "gpt2_family", "llama_tiny_moe"]
+
+
 def _configs(family, f32, **kw):
     jdt = jnp.float32 if f32 else jnp.bfloat16
     tdt = torch.float32 if f32 else torch.bfloat16
+    if family == "llama_tiny_moe":
+        family, kw = "llama_tiny", {**MOE, **kw}
     if family == "llama_tiny":
         return (jgpt.llama_tiny(dtype=jdt, attention_impl="pallas_interpret",
                                 **kw),
@@ -59,7 +66,7 @@ def _tokens(b=2, s=64, vocab=512, seed=1):
                                                 dtype=np.int32)
 
 
-@pytest.mark.parametrize("family", ["llama_tiny", "gpt2_family"])
+@pytest.mark.parametrize("family", FAMILIES)
 def test_logits_match_jax_f32(family):
     jm, params, tm = _pair(family)
     toks = _tokens()
@@ -69,7 +76,7 @@ def test_logits_match_jax_f32(family):
     np.testing.assert_allclose(t.detach().numpy(), j, atol=F32_ATOL)
 
 
-@pytest.mark.parametrize("family", ["llama_tiny", "gpt2_family"])
+@pytest.mark.parametrize("family", FAMILIES)
 def test_logits_match_jax_bf16(family):
     jm, params, tm = _pair(family, f32=False)
     toks = _tokens()
@@ -79,10 +86,10 @@ def test_logits_match_jax_bf16(family):
     np.testing.assert_allclose(t.detach().numpy(), j, atol=BF16_ATOL)
 
 
-@pytest.mark.parametrize("family", ["llama_tiny", "gpt2_family"])
+@pytest.mark.parametrize("family", FAMILIES)
 def test_loss_matches_jax(family):
-    """Next-token NLL + z-loss 1e-4, last position masked, loss_mask applied
-    (gpt.py:559-594)."""
+    """Next-token NLL + z-loss 1e-4, last position masked, loss_mask applied,
+    plus 0.01 x the MoE load-balance loss with experts (gpt.py:559-594)."""
     jm, params, tm = _pair(family)
     toks = _tokens()
     mask = (np.random.default_rng(2).random(toks.shape) > 0.3
@@ -94,7 +101,8 @@ def test_loss_matches_jax(family):
                             if k == "tokens" else torch.from_numpy(v)
                             for k, v in batch.items()})
         np.testing.assert_allclose(float(tl.detach()), float(jl), rtol=1e-5)
-        for key in ("loss", "ppl_log", "tokens"):
+        assert set(tmet) == set(jmet)
+        for key in jmet:
             np.testing.assert_allclose(float(tmet[key]), float(jmet[key]),
                                        rtol=1e-5)
     # z-loss is on: switching it off changes the loss by z * mean(lse^2)
@@ -103,6 +111,26 @@ def test_loss_matches_jax(family):
     tm0.load_state_dict(tm.state_dict())
     batch = {"tokens": torch.from_numpy(toks).long()}
     assert float(tm.loss(batch)[0].detach()) > float(tm0.loss(batch)[0].detach())
+
+
+@pytest.mark.parametrize("f32", [True, False], ids=["f32", "bf16"])
+def test_moe_aux_loss_matches_jax(f32):
+    """forward_with_aux's load-balance loss, the mean over layers, and the
+    loss that adds 0.01 of it."""
+    jm, params, tm = _pair("llama_tiny_moe", f32=f32)
+    toks = _tokens()
+    _, jaux = jm.forward_with_aux(params, jnp.asarray(toks))
+    _, taux = tm.forward_with_aux(torch.from_numpy(toks).long())
+    # router in f32 on both sides from bf16 or f32 activations
+    atol = 1e-6 if f32 else 1e-4
+    np.testing.assert_allclose(float(taux["moe_aux_loss"]),
+                               float(jaux["moe_aux_loss"]), atol=atol)
+    assert 0.5 < float(taux["moe_aux_loss"]) < 2.0
+    jl, _ = jm.loss(params, {"tokens": jnp.asarray(toks)})
+    tl, tmet = tm.loss({"tokens": torch.from_numpy(toks).long()})
+    np.testing.assert_allclose(float(tl.detach()), float(jl),
+                               rtol=1e-5 if f32 else 1e-4)
+    assert float(tmet["loss"]) == float(tl.detach())
 
 
 def test_causality():
@@ -118,7 +146,7 @@ def test_causality():
     assert not torch.allclose(logits1[0, -1], logits2[0, -1])
 
 
-@pytest.mark.parametrize("family", ["llama_tiny", "gpt2_family"])
+@pytest.mark.parametrize("family", FAMILIES)
 def test_remat_policies_give_equal_grads(family):
     _, tc = _configs(family, f32=True)
     toks = torch.from_numpy(_tokens(s=48)).long()
@@ -141,7 +169,9 @@ def test_bad_remat_policy_raises():
         tgpt.GPT(tgpt.llama_tiny(remat_policy="nope"), device="cpu")
 
 
-@pytest.mark.parametrize("kw", [dict(n_experts=4), dict(pp_microbatches=2)])
+# experts with a pipeline: refused as JAX refuses EP+PP (gpt.py:175-178)
+@pytest.mark.parametrize("kw", [dict(n_experts=4, pp_microbatches=2),
+                                dict(pp_microbatches=2)])
 def test_unported_features_raise(kw):
     with pytest.raises(NotImplementedError):
         tgpt.GPT(tgpt.llama_tiny(**kw), device="cpu")
@@ -150,7 +180,7 @@ def test_unported_features_raise(kw):
 def test_param_layout_matches_jax():
     """Every JAX leaf maps to one port parameter of the same shape (per
     layer), and nothing is left over."""
-    for family in ("llama_tiny", "gpt2_family"):
+    for family in FAMILIES:
         jm, params, tm = _pair(family)
         state = params_from_jax(jax.tree_util.tree_map(np.asarray, params),
                                 tm.config)
@@ -162,6 +192,9 @@ def test_param_layout_matches_jax():
         assert state["blocks.0.wq"].shape == params["blocks"]["wq"].shape[1:]
         assert len([n for n in state if n.endswith(".wq")]) == L
         assert ("lm_head" in state) == (not tm.config.tie_embeddings)
+        if tm.config.n_experts:
+            assert state["blocks.0.w_up"].shape == (4, 128, tm.config.ff_dim)
+            assert state["blocks.0.router"].shape == (128, 4)
 
 
 def test_presets_match_jax():

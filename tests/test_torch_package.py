@@ -22,6 +22,7 @@ def _py_files():
 
 def test_import_leaves_jax_and_ray_tpu_out():
     code = ("import sys, ray_tpu_torch, ray_tpu_torch.models.training, "
+            "ray_tpu_torch.models.moe, "
             "ray_tpu_torch.models.convert, ray_tpu_torch.ops._ext; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ray_tpu', 'optax', 'triton')]; "
