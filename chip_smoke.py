@@ -36,11 +36,24 @@ Phases, each fatal on failure (non-zero exit, no result line):
    leaves FREE_AT_PEAK_GB free, then the same steps and checks;
 6. llama_1b with 4 experts, top-2, at full width and depth, seq 2048, batch
    from MOE_BATCHES the same way; also the load-balance loss (0.5-2.0 at
-   the first step), the overflow share and an MFU from the active work.
+   the first step), the overflow share and an MFU from the active work;
+7. ring attention on the card at llama_1b's attention shape (B 2, H 16 /
+   Hk 8, D 128, bf16) over a total sequence of 8192, every sp shard in this
+   process (`LoopbackRing`): sp 2 and sp 4 causal, sp 2 non-causal; output,
+   dQ, dK and dV against full-sequence `flash_attention` on the same inputs
+   (RING_TOL), exact launch counts (sp(sp+1)/2 of each kernel causal, sp²
+   non-causal), and the ring's forward and forward+backward ms beside the
+   full-sequence kernels';
+8. llama_1b at seq 8192 through the sp-4 ring on a loopback mesh, at full
+   width and depth (batch from LONG_BATCHES as in phase 5; 10 forward
+   partials a layer, twice with the remat recompute, 10 dQ and 10 dK/dV);
+   then the same model without a mesh (full-sequence kernels) on the same
+   weights and tokens, whose first loss and grad norm the ring's must match
+   (LONG_LOSS_RTOL, LONG_GRAD_NORM_RTOL).
 
 ``--profile PATH`` profiles two more steps of each train path and writes
 one table per path (PATH with the path's name before its suffix);
-``--skip-main`` skips phases 4-6. Prints the kernels as one JSON line, then
+``--skip-main`` skips phases 4-6 and 8. Prints the kernels as one JSON line, then
 the card's name and power limit, and last ``{"ok": true, "device":
 {...}}``. Exits non-zero without a result when CUDA is missing or the
 package is not beside this script.
@@ -91,6 +104,15 @@ MOE_OUT_RTOL = 1e-5
 FREE_AT_PEAK_GB = 8
 LLAMA_BATCHES = (4, 8, 12, 16, 24)
 MOE_BATCHES = (2, 4)
+LONG_BATCHES = (1, 2, 4, 6)
+
+# phase 7: the ring against full-sequence flash attention, both on the
+# kernels, by the phase-2 rule (normwise, and per element past one bf16 ulp)
+RING_TOL = (6e-3, 1.3e-3)   # (norm_rtol, atol): 2x the readings in PERF.md
+RING_SHAPE = (2, 16, 8, 8192, 128)   # B, H, Hk, total S, D
+# phase 8: the ring's first step against the no-mesh model's, same weights
+LONG_LOSS_RTOL = 1e-3
+LONG_GRAD_NORM_RTOL = 1e-2
 
 REPLACES = {
     "flash_fwd": "ray_tpu/ops/attention.py:89",
@@ -452,7 +474,92 @@ def _tokens(b, s, vocab, seed):
                                                 dtype=np.int64)
 
 
-# --- phases 4-6: train paths -------------------------------------------------
+# --- phase 7: ring attention against full-sequence flash attention --------
+
+def ring_check(torch, A, by_path):
+    """The loopback ring at llama_1b's attention shape over S 8192, against
+    `flash_attention` over the whole sequence on the same inputs: readings,
+    exact launch counts (set to 0 just before each ring's forward and
+    backward, read just after) and times. Returns the readings."""
+    import importlib
+
+    R = importlib.import_module("ray_tpu_torch.ops.ring_attention")
+    B, H, Hk, S, D = RING_SHAPE
+    norm_tol, atol = RING_TOL
+    out, bad = {}, []
+    for causal in (True, False):
+        q, k, v, do = make_case(torch, B, H, Hk, S, S, D, torch.bfloat16,
+                                False, seed=20 + int(causal))
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        full = A.flash_attention(*leaves, causal)
+        full.backward(do)
+        # copies: the timing below accumulates into the leaves' grads
+        ref = [full.detach()] + [t.grad.clone() for t in leaves]
+
+        def flash_fb():
+            torch.autograd.backward(A.flash_attention(*leaves, causal), do)
+
+        with torch.no_grad():
+            flash_fwd_ms = cuda_ms(torch, lambda: A.flash_attention(
+                q, k, v, causal))
+        flash_fb_ms = cuda_ms(torch, flash_fb)
+        for sp in ((2, 4) if causal else (2,)):
+            name = f"ring_sp{sp}" + ("" if causal else "_non_causal")
+            ring = R.LoopbackRing(sp)
+            rleaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            shards = [list(t.chunk(sp, dim=2)) for t in rleaves]
+            do_shards = list(do.chunk(sp, dim=2))
+            torch.cuda.synchronize()
+            A.reset_launch_counts()
+            outs = R.ring_attention(*shards, ring, causal=causal, impl="cuda")
+            torch.autograd.backward(outs, do_shards)
+            torch.cuda.synchronize()
+            counts = dict(A.launches)
+            by_path[name] = counts
+            got = [torch.cat(outs, dim=2).detach()] + [t.grad for t in
+                                                       rleaves]
+            n = sp * (sp + 1) // 2 if causal else sp * sp
+            if counts != {k_: n for k_ in counts}:
+                bad.append(f"{name}: launches {counts}, expected {n} each")
+            readings, parts = {}, []
+            for label, g, r in zip(("out", "dq", "dk", "dv"), got, ref):
+                err, norm_rel, atol_needed = compare(g, r)
+                readings[label] = {"max_abs": err, "norm_rel": norm_rel,
+                                   "atol_needed": atol_needed}
+                parts.append(f"{label} max {err:.3e}, norm {norm_rel:.3e} "
+                             f"(<= {norm_tol:.0e}), atol needed "
+                             f"{atol_needed:.3e} (<= {atol:.1e})")
+                if not (torch.isfinite(g).all() and norm_rel <= norm_tol
+                        and atol_needed <= atol):
+                    bad.append(f"{name}: {label}")
+
+            def ring_fb():
+                torch.autograd.backward(R.ring_attention(
+                    *shards, ring, causal=causal, impl="cuda"), do_shards)
+
+            with torch.no_grad():
+                fwd_ms = cuda_ms(torch, lambda: R.ring_attention(
+                    *[[t.detach() for t in sh] for sh in shards], ring,
+                    causal=causal, impl="cuda"))
+            fb_ms = cuda_ms(torch, ring_fb)
+            log(f"ring [{name} B{B} H{H} Hk{Hk} S{S} D{D}]: launches "
+                f"{counts}; " + "; ".join(parts))
+            log(f"ring [{name}]: forward {fwd_ms:.4f} ms (full-sequence "
+                f"flash {flash_fwd_ms:.4f} ms), forward+backward "
+                f"{fb_ms:.4f} ms (flash {flash_fb_ms:.4f} ms)")
+            out[name] = {"launches": counts, "readings": readings,
+                         "ms": fwd_ms, "fwd_bwd_ms": fb_ms,
+                         "flash_ms": flash_fwd_ms,
+                         "flash_fwd_bwd_ms": flash_fb_ms}
+        del q, k, v, do, leaves, full, ref
+    torch.cuda.empty_cache()
+    if bad:
+        raise SmokeFailure("ring attention disagrees with flash attention: "
+                           + "; ".join(bad))
+    return out
+
+
+# --- phases 4-6 and 8: train paths ------------------------------------------
 
 def kernel_class(name: str) -> str:
     name = name.lower()
@@ -619,21 +726,22 @@ def moe_active_flops(cfg, n_tokens):
 
 
 def train_path(torch, A, models, smi_name, name, cfg, batches, warmup=2,
-               steps=5, profile_path=None):
+               steps=5, profile_path=None, mesh=None):
     """Train steps of `cfg` at seq cfg.max_seq_len through GPT ->
-    init_train_state -> make_train_step on tokens from a seeded numpy
-    generator: the batch from `batches` (pick_batch when there are
-    several), then `warmup` + `steps` steps with the launch counts set to 0
-    just before and read just after. Returns (counts, result)."""
+    init_train_state -> make_train_step (on `mesh` when given) on tokens
+    from a seeded numpy generator: the batch from `batches` (pick_batch
+    when there are several), then `warmup` + `steps` steps with the launch
+    counts set to 0 just before and read just after. Returns (counts,
+    result)."""
     from ray_tpu_torch.models.moe import capacity
     from ray_tpu_torch.models.training import flops_per_token
 
     seq = cfg.max_seq_len
     t0 = time.perf_counter()
-    model = models.GPT(cfg, seed=0)
+    model = models.GPT(cfg, seed=0, mesh=mesh)
     opt = models.make_optimizer(total_steps=steps + warmup)
-    state = models.init_train_state(model, opt)
-    step = models.make_train_step(model, opt)
+    state = models.init_train_state(model, opt, mesh=mesh)
+    step = models.make_train_step(model, opt, mesh=mesh)
     torch.cuda.synchronize()
     log(f"{name}: {cfg.n_params / 1e6:.1f}M params built in "
         f"{time.perf_counter() - t0:.1f}s")
@@ -691,10 +799,12 @@ def train_path(torch, A, models, smi_name, name, cfg, batches, warmup=2,
         raise SmokeFailure(f"{name}: first loss {losses[0]} far from "
                            f"ln(V)={math.log(cfg.vocab_size):.3f}")
     # per layer and step: the forward twice (forward and remat recompute),
-    # dQ and dK/dV once
+    # dQ and dK/dV once; through a causal ring, sp(sp+1)/2 partials each
     fwd = 2 if cfg.remat else 1
-    expected = {"flash_fwd": fwd * cfg.n_layers,
-                "flash_bwd_dq": cfg.n_layers, "flash_bwd_dkv": cfg.n_layers}
+    sp = mesh.shape["sp"] if mesh is not None else 1
+    calls = cfg.n_layers * sp * (sp + 1) // 2
+    expected = {"flash_fwd": fwd * calls, "flash_bwd_dq": calls,
+                "flash_bwd_dkv": calls}
     wrong = {k: v for k, v in counts.items() if v != expected[k] * n_steps}
     if wrong:
         raise SmokeFailure(f"{name}: kernel launches {wrong} in {n_steps} "
@@ -727,6 +837,40 @@ def train_path(torch, A, models, smi_name, name, cfg, batches, warmup=2,
             path.with_name(f"{path.stem}.{name}{path.suffix}"),
             step_s * 1e3, moe_dims=moe_dims)
     return counts, result
+
+
+def long_context(torch, A, models, smi, cfg, names, by_path, profile):
+    """Phase 8: `cfg` through the sp-4 ring on a loopback mesh, then without
+    a mesh at the batch the ring path chose; the first loss and grad norm
+    of the two must agree."""
+    from ray_tpu_torch.parallel import MeshSpec, loopback_mesh
+
+    ring_name, flat_name = names
+    out = {}
+    by_path[ring_name], out[ring_name] = train_path(
+        torch, A, models, smi, ring_name, cfg, LONG_BATCHES,
+        profile_path=profile, mesh=loopback_mesh(MeshSpec(dp=1, sp=4)))
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path[flat_name], out[flat_name] = train_path(
+        torch, A, models, smi, flat_name, cfg, (out[ring_name]["batch"],),
+        profile_path=profile)
+    gc.collect()
+    torch.cuda.empty_cache()
+    r, f = out[ring_name], out[flat_name]
+    loss_rel = abs(r["losses"][0] - f["losses"][0]) / abs(f["losses"][0])
+    norm_rel = abs(r["grad_norms"][0] - f["grad_norms"][0]) / abs(
+        f["grad_norms"][0])
+    log(f"long context: first loss ring {r['losses'][0]:.6f} no mesh "
+        f"{f['losses'][0]:.6f}, relative gap {loss_rel:.3e} (<= "
+        f"{LONG_LOSS_RTOL:.0e}); first grad norm ring "
+        f"{r['grad_norms'][0]:.6f} no mesh {f['grad_norms'][0]:.6f}, "
+        f"relative gap {norm_rel:.3e} (<= {LONG_GRAD_NORM_RTOL:.0e})")
+    out["first_loss_rel"], out["first_grad_norm_rel"] = loss_rel, norm_rel
+    if not (loss_rel <= LONG_LOSS_RTOL and norm_rel <= LONG_GRAD_NORM_RTOL):
+        raise SmokeFailure("long context: the ring's first step disagrees "
+                           "with the no-mesh model's")
+    return out
 
 
 def run(args) -> int:
@@ -831,8 +975,22 @@ def run(args) -> int:
             profile_path=args.profile)
         gc.collect()
         torch.cuda.empty_cache()
+
+    # phase 7: the ring against full-sequence flash attention (also under
+    # --skip-main)
+    ring = ring_check(torch, A, by_path)
+
+    # phase 8: llama_1b at seq 8192 through the sp-4 ring, then without a
+    # mesh at the same batch, on the same weights and tokens
+    long_cfg = models.llama_1b(max_seq_len=8192, remat_policy="dots")
+    long_paths = ("llama_1b_s8192_ring_sp4", "llama_1b_s8192")
     if args.skip_main:
+        by_path.update({n: {k: None for k in A.launches} for n in long_paths})
         log("train paths: skipped (--skip-main)")
+    else:
+        main["long_context"] = long_context(torch, A, models, smi, long_cfg,
+                                            long_paths, by_path,
+                                            args.profile)
 
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name],
@@ -850,7 +1008,8 @@ def run(args) -> int:
                        "timings": timings,
                        "readings": {k: r["readings"]
                                     for k, r in results.items()},
-                       "model_check": model, "main": main},
+                       "model_check": model, "ring": ring,
+                       "main": main},
                       f, indent=1)
     log(json.dumps({"kernels": kernels}))
     log(smi)
@@ -868,7 +1027,8 @@ def main() -> int:
                     "write torch.profiler's table to PATH with the path's "
                     "name before the suffix")
     ap.add_argument("--skip-main", action="store_true",
-                    help="skip the train paths, phases 4-6 (debugging)")
+                    help="skip the train paths, phases 4-6 and 8 "
+                    "(debugging)")
     args = ap.parse_args()
     try:
         return run(args)

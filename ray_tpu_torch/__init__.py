@@ -1,12 +1,13 @@
 """ray_tpu_torch — the PyTorch/CUDA port of ``ray_tpu``, for NVIDIA Hopper.
 
 A package of its own beside ``ray_tpu``: it imports ``torch`` and
-``numpy`` and nothing of JAX or of ``ray_tpu``. This slice holds the
-flagship decoder's training step on one device (``models``), with its
-attention on hand-written CUDA flash kernels (``ops``). Entry points run on
-the card (``device="cuda"``) unless the caller passes ``device="cpu"``.
+``numpy`` and nothing of JAX or of ``ray_tpu``. It holds the flagship
+decoder's training step (``models``), with its attention on hand-written
+CUDA flash kernels and ring attention over them (``ops``), on one device or
+over a dp x sp mesh (``parallel``). Entry points run on the card
+(``device="cuda"``) unless the caller passes ``device="cpu"``.
 """
 
-from . import models, ops  # noqa: F401
+from . import models, ops, parallel  # noqa: F401
 
 __version__ = "0.1.0"

@@ -12,9 +12,15 @@ layout of one slice of the stacked tree (``wq [d, h, hd]``,
 ``wo [h, hd, d]``, ...), so a JAX checkpoint loads by unstacking only
 (`ray_tpu_torch.models.convert.params_from_jax`).
 
-Single device: the mixture-of-experts FFN (``n_experts > 0``, `moe.py`)
-runs without expert parallelism; pipeline and the mesh axes (dp/fsdp/tp/
-sp/ep) are later slices of the port, and a pipeline setting raises here.
+Parallelism comes in through a `ray_tpu_torch.parallel.Mesh` and its
+rules, as in JAX. This slice runs the dp and sp axes, with every parameter
+whole on every rank: a rank computes its rows and sequence columns, and
+attention over sp runs `ring_attention` on the flash kernels. On a loopback
+mesh one process holds every sp shard: it runs the whole sequence and
+splits only attention into the ring's shards. The mixture-of-experts FFN
+(``n_experts > 0``, `moe.py`) runs on one rank only (its capacity and slot
+order are global in JAX); fsdp, tp, ep and pp are later slices of the port,
+and each of them raises here.
 """
 
 from __future__ import annotations
@@ -31,6 +37,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..ops.attention import dot_product_attention
+from ..ops.ring_attention import ring_attention, ring_transport
+from ..parallel.mesh import Mesh
+from ..parallel.sharding import DEFAULT_RULES, ShardingRules, shard_batch
 from .moe import moe_ffn
 
 
@@ -168,6 +177,26 @@ _REMAT_CONTEXTS = {
 }
 
 
+def _check_mesh(c: GPTConfig, mesh: Mesh) -> None:
+    """Refuse what this slice of the port leaves out."""
+    shape = mesh.shape
+    later = {"fsdp": "the fsdp/tp slice (FSDP2)",
+             "tp": "the fsdp/tp slice (DTensor)",
+             "ep": "the ep slice", "pp": "the pp slice"}
+    for axis, where in later.items():
+        if shape[axis] > 1:
+            raise NotImplementedError(
+                f"mesh axis {axis}={shape[axis]} is not ported yet; it comes "
+                f"with {where}")
+    if c.n_experts > 0 and shape["dp"] * shape["sp"] > 1:
+        # JAX routes over the global token set: capacity from the global
+        # T, slot priority in global token order, the load-balance loss a
+        # mean over all tokens. A per-rank moe_ffn would differ.
+        raise NotImplementedError(
+            "the MoE FFN across dp/sp ranks routes over the global token "
+            "set; it comes with the ep slice")
+
+
 # --- model -----------------------------------------------------------------
 
 def _normal(gen, device, dtype, std, *shape) -> nn.Parameter:
@@ -222,12 +251,29 @@ class GPT(nn.Module):
     JAX model's `init` does with its key; the two give different numbers.
     """
 
-    def __init__(self, config: GPTConfig, device="cuda", seed: int = 0):
+    def __init__(self, config: GPTConfig, device="cuda", seed: int = 0,
+                 mesh: Optional[Mesh] = None,
+                 rules: Optional[ShardingRules] = None):
         super().__init__()
         c = config
         if c.pp_microbatches:
             # with experts too: JAX refuses EP+PP combined as well
             raise NotImplementedError("pipeline parallelism is not ported yet")
+        self.mesh = mesh
+        self.rules = rules if rules is not None else DEFAULT_RULES
+        # the loss and the gradients sum over ranks: a process mesh with
+        # dp x sp > 1 (a loopback mesh holds every shard in this process)
+        self.sums_over_ranks = (mesh is not None and not mesh.loopback and
+                                mesh.shape["dp"] * mesh.shape["sp"] > 1)
+        self._ring = None
+        if mesh is not None:
+            _check_mesh(c, mesh)
+            if self._sp_size() > 1:
+                axis = self.rules.mesh_axes("act_seq")
+                if not isinstance(axis, str):
+                    raise ValueError("ring attention needs act_seq mapped to "
+                                     f"a single mesh axis, got {axis!r}")
+                self._ring = ring_transport(mesh.group(axis))
         if c.remat and c.remat_policy not in _REMAT_CONTEXTS:
             raise ValueError(
                 f"remat_policy must be one of {sorted(_REMAT_CONTEXTS)}, got "
@@ -258,6 +304,15 @@ class GPT(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.tok_embed.device
+
+    def _sp_size(self) -> int:
+        """Size of the mesh axis act_seq maps to (sequence parallelism)."""
+        if self.mesh is None:
+            return 1
+        ax = self.rules.mesh_axes("act_seq")
+        if isinstance(ax, str) and ax in self.mesh.shape:
+            return self.mesh.shape[ax]
+        return 1
 
     # -- building blocks ---------------------------------------------------
 
@@ -308,9 +363,8 @@ class GPT(nn.Module):
             k = self._rope(k, positions)
         # [B,S,H,hd] -> [B,H,S,hd] as strided views: the kernels read them
         # in place and write the output in q's layout
-        attn = dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                     v.transpose(1, 2), causal=True,
-                                     impl=c.attention_impl).transpose(1, 2)
+        attn = self._attention(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2)).transpose(1, 2)
         attn = attn.reshape(*x.shape[:2], -1)
         x = x + self._proj(attn, blk.wo.to(dt).reshape(-1, c.d_model))
 
@@ -328,6 +382,23 @@ class GPT(nn.Module):
             act = F.gelu(up, approximate="tanh")
         return x + self._proj(act, blk.w_down.to(dt)), None
 
+    def _attention(self, q, k, v):
+        """[B, H, S, hd] -> [B, H, S, hd]: flash attention, or the ring over
+        sp. On a loopback mesh S is the whole sequence, cut here into the
+        ring's shards."""
+        c = self.config
+        if self._ring is None:
+            return dot_product_attention(q, k, v, causal=True,
+                                         impl=c.attention_impl)
+        if self.mesh.loopback:
+            n = self._ring.size
+            outs = ring_attention(q.chunk(n, dim=2), k.chunk(n, dim=2),
+                                  v.chunk(n, dim=2), self._ring, causal=True,
+                                  impl=c.attention_impl)
+            return torch.cat(outs, dim=2)
+        return ring_attention(q, k, v, self._ring, causal=True,
+                              impl=c.attention_impl)
+
     def _run_block(self, blk, x, positions):
         c = self.config
         if not (c.remat and torch.is_grad_enabled()):
@@ -343,11 +414,18 @@ class GPT(nn.Module):
                          positions: Optional[torch.Tensor] = None
                          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """tokens [B, S] int -> (logits [B, S, V] f32, {"moe_aux_loss": the
-        mean over layers of the MoE load-balance loss, 0 when dense})."""
+        mean over layers of the MoE load-balance loss, 0 when dense}).
+
+        On a process mesh with sp > 1, `tokens` are this rank's sequence
+        shard, and `positions` default to the shard's global ones."""
         c = self.config
         if positions is None:
-            positions = torch.arange(tokens.shape[1], device=tokens.device
-                                     ).expand(tokens.shape)
+            offset = 0
+            if self._ring is not None and not self.mesh.loopback:
+                offset = self.mesh.coords[self.rules.mesh_axes("act_seq")] \
+                    * tokens.shape[1]
+            positions = torch.arange(offset, offset + tokens.shape[1],
+                                     device=tokens.device).expand(tokens.shape)
         x = F.embedding(tokens, self.tok_embed.to(c.dtype))
         if c.positions == "learned":
             x = x + F.embedding(positions, self.pos_embed.to(c.dtype))
@@ -372,32 +450,48 @@ class GPT(nn.Module):
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Next-token cross entropy (+ z-loss) with an optional loss mask.
 
-        batch: {"tokens": [B, S] int, optional "loss_mask": [B, S]}.
-        Targets are tokens shifted left; the final position is masked.
+        batch: the global batch {"tokens": [B, S] int, optional "loss_mask":
+        [B, S]}. Targets are tokens shifted left; the final position is
+        masked. On a process mesh this rank takes its part of the batch
+        (`shard_batch`), the loss is its share of the global one, normalised
+        by the global mask count, and the metrics are global.
         """
         c = self.config
-        tokens = batch["tokens"]
-        logits, aux = self.forward_with_aux(tokens)
-        targets = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])],
-                            dim=1)
-        mask = torch.ones(tokens.shape, device=tokens.device)
-        mask[:, -1] = 0.0
-        if "loss_mask" in batch:
-            mask = mask * batch["loss_mask"].float()
+        batch = shard_batch(self.mesh, batch, self.rules)
+        tokens, targets, mask = (batch["tokens"], batch["targets"],
+                                 batch["loss_mask"])
+        logits, aux = self.forward_with_aux(tokens, batch["positions"])
         lse = torch.logsumexp(logits, dim=-1)                 # [B, S]
         true_logit = logits.gather(-1, targets[..., None])[..., 0]
         nll = lse - true_logit
-        total = mask.sum().clamp(min=1.0)
-        loss = (nll * mask).sum() / total
+        count = mask.sum()
+        if self.sums_over_ranks:
+            count = _all_reduce(count.detach())
+        total = count.clamp(min=1.0)
+        nll_sum = (nll * mask).sum()
+        loss = nll_sum / total
         if c.z_loss:
             loss = loss + c.z_loss * (lse ** 2 * mask).sum() / total
         metrics = {
             "loss": loss.detach(),
-            "ppl_log": ((nll * mask).sum() / total).detach(),
-            "tokens": mask.sum(),
+            "ppl_log": (nll_sum / total).detach(),
+            "tokens": count,
         }
+        if self.sums_over_ranks:
+            loss_g, ppl_g = _all_reduce(torch.stack(
+                [metrics["loss"], metrics["ppl_log"]]))
+            metrics.update(loss=loss_g, ppl_log=ppl_g)
         if c.n_experts > 0:
             loss = loss + c.moe_aux_coeff * aux["moe_aux_loss"]
             metrics["moe_aux_loss"] = aux["moe_aux_loss"].detach()
             metrics["loss"] = loss.detach()
         return loss, metrics
+
+
+def _all_reduce(t: torch.Tensor) -> torch.Tensor:
+    """Sum of `t` over every rank of the default group (the dp x sp
+    replicas: this slice's meshes span it and keep parameters whole)."""
+    import torch.distributed as dist
+
+    dist.all_reduce(t)
+    return t

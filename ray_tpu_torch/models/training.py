@@ -1,4 +1,5 @@
-"""Training step: optimizer, TrainState, train/eval step on one device.
+"""Training step: optimizer, TrainState, train/eval step, on one device or
+over a dp x sp mesh.
 
 Counterpart of ``ray_tpu/models/training.py``. The optimizer is written out
 by hand with optax's semantics for
@@ -16,16 +17,23 @@ by hand with optax's semantics for
 The step updates parameters and moments in place, and clips the gradients
 in their own buffers (the JAX step donates its state buffers, and XLA fuses
 the update, for the same reason: one copy of the state in memory).
+
+On a mesh (`ray_tpu_torch.parallel`) every rank holds the whole model and
+takes the global batch, of which the model's loss reads this rank's rows
+and sequence columns (`shard_batch`); the step sums the gradients over the
+dp x sp ranks in one all-reduce before the update, which then sees the
+global gradients (and takes their global norm) exactly as on one device.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from ..parallel.mesh import Mesh
 from .gpt import GPT, resolve_device
 
 Params = Dict[str, torch.Tensor]
@@ -136,26 +144,53 @@ class TrainState:
     opt_state: Dict
 
 
-def init_train_state(model: GPT, optimizer: Optimizer,
-                     device="cuda") -> TrainState:
+def _check_mesh(model: GPT, mesh: Optional[Mesh]) -> None:
+    """A step runs on the model's own mesh; a `mesh` given to it must be
+    that one."""
+    if mesh is not None and mesh is not model.mesh:
+        raise ValueError("the step's mesh must be the one the model was "
+                         "built with (GPT(config, mesh=...))")
+
+
+def init_train_state(model: GPT, optimizer: Optimizer, device="cuda",
+                     mesh: Optional[Mesh] = None) -> TrainState:
     """Optimizer state for `model`'s parameters on `device` (the model is
     moved there). The parameters were initialised by `GPT(config, seed=)`,
-    where the JAX version initialises them here from its key."""
+    where the JAX version initialises them here from its key; on a mesh
+    every rank builds the same weights from the same seed."""
     device = resolve_device(device)
+    _check_mesh(model, mesh)
     model.to(device)
     params = dict(model.named_parameters())
     return TrainState(step=0, params=params,
                       opt_state=optimizer.init(params))
 
 
-def make_train_step(model: GPT, optimizer: Optimizer, device="cuda"
+def _all_reduce_grads(grads: List[torch.Tensor]) -> None:
+    """Sum `grads` over every rank, in place, as one all-reduce of one
+    flat buffer."""
+    import torch.distributed as dist
+
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat)
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()
+
+
+def make_train_step(model: GPT, optimizer: Optimizer, device="cuda",
+                    mesh: Optional[Mesh] = None
                     ) -> Callable[[TrainState, Dict[str, torch.Tensor]],
                                   Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """step(state, batch) -> (state, metrics): forward, backward and one
-    optimizer update, in place. Metrics are 0-d tensors on the device."""
+    optimizer update, in place. `batch` is the global batch; on a mesh the
+    model takes this rank's part of it (`GPT.loss`). Metrics are 0-d
+    tensors on the device, global over the mesh."""
     device = resolve_device(device)
     if model.device.type != device.type:
         raise ValueError(f"model is on {model.device}, step asked for {device}")
+    _check_mesh(model, mesh)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         for p in state.params.values():
@@ -164,6 +199,8 @@ def make_train_step(model: GPT, optimizer: Optimizer, device="cuda"
         loss.backward()
         grads = [p.grad for p in state.params.values()]
         with torch.no_grad():
+            if model.sums_over_ranks:
+                _all_reduce_grads(grads)
             g_norm = optimizer.update_(state.params, grads, state.opt_state)
         for p in state.params.values():
             p.grad = None
@@ -175,10 +212,12 @@ def make_train_step(model: GPT, optimizer: Optimizer, device="cuda"
     return train_step
 
 
-def eval_step_fn(model: GPT, device="cuda"):
+def eval_step_fn(model: GPT, device="cuda", mesh: Optional[Mesh] = None):
     """eval_step(batch) -> metrics, without gradients (the parameters are
-    the model's own, where the JAX version takes them as an argument)."""
+    the model's own, where the JAX version takes them as an argument).
+    `batch` is the global batch, as for the train step."""
     resolve_device(device)
+    _check_mesh(model, mesh)
 
     @torch.no_grad()
     def eval_step(batch):

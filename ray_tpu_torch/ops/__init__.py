@@ -6,3 +6,4 @@ launched for CUDA tensors.
 """
 
 from .attention import dot_product_attention, flash_attention  # noqa: F401
+from .ring_attention import ring_attention  # noqa: F401

@@ -17,6 +17,7 @@ import torch
 from ray_tpu.models import gpt as jgpt
 from ray_tpu_torch.models import gpt as tgpt
 from ray_tpu_torch.models.convert import params_from_jax
+from ray_tpu_torch.parallel import AXIS_ORDER, Mesh, MeshSpec
 
 torch.set_num_threads(2)
 
@@ -169,12 +170,28 @@ def test_bad_remat_policy_raises():
         tgpt.GPT(tgpt.llama_tiny(remat_policy="nope"), device="cpu")
 
 
-# experts with a pipeline: refused as JAX refuses EP+PP (gpt.py:175-178)
-@pytest.mark.parametrize("kw", [dict(n_experts=4, pp_microbatches=2),
-                                dict(pp_microbatches=2)])
-def test_unported_features_raise(kw):
+def _mesh(**spec):
+    spec = MeshSpec(**spec)
+    return Mesh(spec.resolve(spec.total), {a: 0 for a in AXIS_ORDER})
+
+
+# experts with a pipeline: refused as JAX refuses EP+PP (gpt.py:175-178);
+# the mesh axes that change how parameters are stored (fsdp, tp, ep, pp)
+# are later slices; MoE across dp/sp ranks routes over the global tokens
+@pytest.mark.parametrize("kw, mesh", [
+    pytest.param(dict(n_experts=4, pp_microbatches=2), None, id="kw0"),
+    pytest.param(dict(pp_microbatches=2), None, id="kw1"),
+    pytest.param({}, dict(dp=1, fsdp=2), id="fsdp2"),
+    pytest.param({}, dict(dp=1, tp=2), id="tp2"),
+    pytest.param({}, dict(dp=1, ep=2), id="ep2"),
+    pytest.param({}, dict(dp=1, pp=2), id="pp2"),
+    pytest.param(dict(n_experts=4), dict(dp=2), id="moe_dp2"),
+    pytest.param(dict(n_experts=4), dict(dp=1, sp=2), id="moe_sp2"),
+])
+def test_unported_features_raise(kw, mesh):
     with pytest.raises(NotImplementedError):
-        tgpt.GPT(tgpt.llama_tiny(**kw), device="cpu")
+        tgpt.GPT(tgpt.llama_tiny(**kw), device="cpu",
+                 mesh=None if mesh is None else _mesh(**mesh))
 
 
 def test_param_layout_matches_jax():

@@ -1,0 +1,181 @@
+"""Rank programs for the multi-process (gloo) tests of ray_tpu_torch.
+
+`launch` starts one spawned process per rank, joined by a `FileStore` in
+the test's own directory (no TCP port, so tests in parallel cannot
+collide), and gives each group a deadline. Each rank program runs with the
+default process group set up and returns a dict of numpy arrays, which
+`launch` hands back in rank order. This module imports torch, numpy and the
+port only: the children never import JAX.
+"""
+
+from __future__ import annotations
+
+import multiprocessing
+import os
+import time
+import traceback
+from typing import Callable, Dict, List
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+# the parent tests run torch on 2 threads too, so sums come out the same
+THREADS = 2
+
+
+def launch(target: Callable, world: int, workdir, *args,
+           timeout: float = 240.0) -> List[Dict[str, np.ndarray]]:
+    """Run target(rank, world, *args) on `world` gloo ranks; fail if any
+    rank fails or the group outlives `timeout` seconds."""
+    workdir = str(workdir)
+    ctx = multiprocessing.get_context("spawn")
+    store = os.path.join(workdir, f"store_{target.__name__}_{world}")
+    procs = [ctx.Process(target=_rank_main,
+                         args=(target, rank, world, store, workdir, args))
+             for rank in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    hung = [rank for rank, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+    codes = [p.exitcode for p in procs]
+    if hung or any(codes):
+        raise AssertionError(f"{target.__name__} on {world} ranks: hung "
+                             f"ranks {hung}, exit codes {codes}")
+    return [dict(np.load(_out_path(workdir, target, rank)))
+            for rank in range(world)]
+
+
+def _out_path(workdir, target, rank):
+    return os.path.join(workdir, f"{target.__name__}_rank{rank}.npz")
+
+
+def _rank_main(target, rank, world, store, workdir, args):
+    torch.set_num_threads(THREADS)
+    try:
+        dist.init_process_group(
+            "gloo", store=dist.FileStore(store, world), rank=rank,
+            world_size=world)
+        try:
+            out = target(rank, world, *args)
+        finally:
+            dist.destroy_process_group()
+        np.savez(_out_path(workdir, target, rank), **out)
+    except BaseException:
+        traceback.print_exc()
+        raise SystemExit(1)
+
+
+# --- ring attention ----------------------------------------------------------
+
+def ring_rank(rank, world, inputs_path, causal):
+    """This rank's shard through `ProcessGroupRing` over the world, and the
+    same shard through `LoopbackRing` holding every shard: outputs and the
+    q/k/v gradients of sum(out**2). Also: a CUDA tensor on the gloo ring
+    raises before anything is sent (a stand-in object carries the device,
+    so this needs no card; the exchanges after it would fail if a send had
+    gone out)."""
+    import importlib
+    from types import SimpleNamespace
+
+    R = importlib.import_module("ray_tpu_torch.ops.ring_attention")
+
+    ring = R.ProcessGroupRing()
+    cuda_raises = False
+    try:
+        ring.shift([(SimpleNamespace(device=torch.device("cuda", 0)),)])
+    except RuntimeError:
+        cuda_raises = True
+
+    data = np.load(inputs_path)
+
+    def run(transport, shards):
+        ts = [[torch.tensor(data[n]).chunk(world, dim=2)[i]
+               .clone().requires_grad_() for i in shards]
+              for n in ("q", "k", "v")]
+        qs, ks, vs = ts
+        if isinstance(transport, R.LoopbackRing):
+            outs = R.ring_attention(qs, ks, vs, transport, causal=causal)
+        else:
+            outs = [R.ring_attention(qs[0], ks[0], vs[0], transport,
+                                     causal=causal)]
+        sum((o ** 2).sum() for o in outs).backward()
+        j = shards.index(rank)
+        return [outs[j].detach().numpy()] + [t[j].grad.numpy() for t in ts]
+
+    names = ("out", "dq", "dk", "dv")
+    res = dict(zip(names, run(ring, [rank])))
+    res.update({f"loopback_{n}": a for n, a in
+                zip(names, run(R.LoopbackRing(world), list(range(world))))})
+    res["cuda_raises"] = np.array(cuda_raises)
+    return res
+
+
+# --- the model and the train step --------------------------------------------
+
+def _model(config_kw, spec_kw, params_path, family="llama_tiny"):
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.parallel import MeshSpec, build_mesh
+
+    mesh = build_mesh(MeshSpec(**spec_kw), device_type="cpu")
+    if family == "llama_tiny":
+        cfg = gpt.llama_tiny(dtype=torch.float32, **config_kw)
+    else:
+        cfg = gpt.GPTConfig(dtype=torch.float32, **config_kw)
+    model = gpt.GPT(cfg, device="cpu", seed=0, mesh=mesh)
+    init = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+    if params_path is not None:
+        data = np.load(params_path)
+        model.load_state_dict({n: torch.tensor(data[n]) for n in data.files})
+    return model, mesh, init.numpy()
+
+
+def train_rank(rank, world, spec_kw, params_path, tokens_path, steps,
+               opt_kw):
+    """`steps` train steps of f32 llama_tiny on this rank's part of the
+    global batch: losses, grad norms and tokens each step, the final
+    parameters, and the weights the seed gave before the load."""
+    from ray_tpu_torch.models import training
+
+    model, mesh, init = _model({}, spec_kw, params_path)
+    opt = training.make_optimizer(**opt_kw)
+    state = training.init_train_state(model, opt, device="cpu", mesh=mesh)
+    step = training.make_train_step(model, opt, device="cpu", mesh=mesh)
+    batch = {"tokens": torch.tensor(np.load(tokens_path)["tokens"]).long()}
+    losses, norms, tokens = [], [], []
+    for _ in range(steps):
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        tokens.append(float(m["tokens"]))
+    out = {f"param/{n}": p.detach().numpy() for n, p in state.params.items()}
+    out.update(losses=np.array(losses), grad_norms=np.array(norms),
+               tokens=np.array(tokens), init=init,
+               coords=np.array([mesh.coords[a] for a in ("dp", "sp")]))
+    eval_metrics = training.eval_step_fn(model, device="cpu", mesh=mesh)(
+        batch)
+    out["eval_loss"] = np.array(float(eval_metrics["loss"]))
+    return out
+
+
+def forward_rank(rank, world, spec_kw, config_kw, params_path, tokens_path):
+    """Logits of this rank's sequence shard and the global loss of a
+    GPT-2-family model (learned positions) on a mesh."""
+    from ray_tpu_torch.parallel import shard_batch
+
+    model, mesh, _ = _model(config_kw, spec_kw, params_path, family="gpt2")
+    tokens = torch.tensor(np.load(tokens_path)["tokens"]).long()
+    with torch.no_grad():
+        # apply takes this rank's tokens (positions default to the shard's
+        # global ones); loss takes the global batch
+        logits = model.apply(shard_batch(mesh, {"tokens": tokens})["tokens"])
+        loss, metrics = model.loss({"tokens": tokens})
+    return {"logits": logits.numpy(), "loss": np.array(float(loss)),
+            "global_loss": np.array(float(metrics["loss"])),
+            "coords": np.array([mesh.coords[a] for a in ("dp", "sp")])}
