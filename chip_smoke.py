@@ -49,14 +49,22 @@ Phases, each fatal on failure (non-zero exit, no result line):
    partials a layer, twice with the remat recompute, 10 dQ and 10 dK/dV);
    then the same model without a mesh (full-sequence kernels) on the same
    weights and tokens, whose first loss and grad norm the ring's must match
-   (LONG_LOSS_RTOL, LONG_GRAD_NORM_RTOL).
+   (LONG_LOSS_RTOL, LONG_GRAD_NORM_RTOL);
+9. llama_1b through the process-mesh path on a one-rank NCCL group
+   (`build_mesh(MeshSpec(dp=1, fsdp=1, tp=1))`): FSDP2 over (dp, fsdp), the
+   tp autograd functions, the vocab-parallel loss and the global-norm clip
+   over the mesh's groups, at phase 5's batch on the same weights and
+   tokens; the same checks and launches as phase 5, the path's own calls
+   counted exactly (FSDP2 holds every parameter as a DTensor), and its
+   first loss and grad norm against phase 5's (FSDP_LOSS_RTOL,
+   FSDP_GRAD_NORM_RTOL).
 
 ``--profile PATH`` profiles two more steps of each train path and writes
 one table per path (PATH with the path's name before its suffix);
-``--skip-main`` skips phases 4-6 and 8. Prints the kernels as one JSON line, then
-the card's name and power limit, and last ``{"ok": true, "device":
-{...}}``. Exits non-zero without a result when CUDA is missing or the
-package is not beside this script.
+``--skip-main`` skips the train paths, phases 4-6, 8 and 9. Prints the
+kernels as one JSON line, then the card's name and power limit, and last
+``{"ok": true, "device": {...}}``. Exits non-zero without a result when
+CUDA is missing or the package is not beside this script.
 """
 
 from __future__ import annotations
@@ -113,6 +121,9 @@ RING_SHAPE = (2, 16, 8, 8192, 128)   # B, H, Hk, total S, D
 # phase 8: the ring's first step against the no-mesh model's, same weights
 LONG_LOSS_RTOL = 1e-3
 LONG_GRAD_NORM_RTOL = 1e-2
+# phase 9: the process-mesh path's first step against phase 5's
+FSDP_LOSS_RTOL = 1e-4
+FSDP_GRAD_NORM_RTOL = 2e-3
 
 REPLACES = {
     "flash_fwd": "ray_tpu/ops/attention.py:89",
@@ -754,6 +765,11 @@ def train_path(torch, A, models, smi_name, name, cfg, batches, warmup=2,
     batch_dict = {"tokens": tokens}
     moe = cfg.n_experts > 0
     result = {"batch": batch, "seq": seq, "batches_tried": tried}
+    if mesh is not None and not mesh.loopback:
+        from torch.distributed.tensor import DTensor
+        params = list(model.parameters())
+        result["dtensor_params"] = (sum(isinstance(p, DTensor)
+                                        for p in params), len(params))
     if moe:
         result["overflow_at_init"] = moe_overflow(torch, model, tokens)
 
@@ -870,6 +886,100 @@ def long_context(torch, A, models, smi, cfg, names, by_path, profile):
     if not (loss_rel <= LONG_LOSS_RTOL and norm_rel <= LONG_GRAD_NORM_RTOL):
         raise SmokeFailure("long context: the ring's first step disagrees "
                            "with the no-mesh model's")
+    return out
+
+
+def counting(module, names):
+    """Wrap each function `names` of `module` so that its calls are counted
+    (in the returned dict); `restore()` puts the originals back."""
+    counts = {n: 0 for n in names}
+    real = {n: getattr(module, n) for n in names}
+
+    def wrap(n):
+        def counted(*args, **kw):
+            counts[n] += 1
+            return real[n](*args, **kw)
+        return counted
+
+    for n in names:
+        setattr(module, n, wrap(n))
+
+    def restore():
+        for n, f in real.items():
+            setattr(module, n, f)
+    return counts, restore
+
+
+def fsdp_tp_path(torch, A, models, smi, cfg, base, name, by_path, profile):
+    """Phase 9: `cfg` on a process mesh of one rank over NCCL, through the
+    same FSDP2 wrapping, tp autograd functions, vocab-parallel loss and
+    global-norm clip as a mesh of many ranks, at phase 5's batch (`base`)
+    on the same weights and tokens. Fails unless every parameter is an
+    FSDP2 DTensor, each tp function and the clip's sums ran their exact
+    count a step, and the first loss and grad norm match phase 5's."""
+    import torch.distributed as dist
+    from ray_tpu_torch.models import gpt as G
+    from ray_tpu_torch.models import training as T
+    from ray_tpu_torch.parallel import MeshSpec, build_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    tp_calls, restore_tp = counting(
+        G, ("copy_to_tp", "reduce_from_tp", "gather_from_tp"))
+    clip_calls, restore_clip = counting(T, ("_global_norms",))
+    try:
+        t0 = time.perf_counter()
+        mesh = build_mesh(MeshSpec(dp=1, fsdp=1, tp=1), device_type="cuda")
+        log(f"{name}: NCCL group of 1 rank and its mesh in "
+            f"{time.perf_counter() - t0:.1f}s")
+        by_path[name], out = train_path(
+            torch, A, models, smi, name, cfg, (base["batch"],),
+            profile_path=profile, mesh=mesh)
+    finally:
+        restore_tp()
+        restore_clip()
+        dist.destroy_process_group()
+    # per step: into each block half's column-parallel products and the head
+    # (2L + 1), out of each row-parallel product and the embedding (2L + 1);
+    # the recompute repeats the blocks' inputs (2L) and the attention
+    # half's output (L: it stops early, before the MLP's output, which no
+    # backward needs); one loss gather; one clip. Profiled steps count too.
+    L = cfg.n_layers
+    n_steps = len(out["losses"]) + (2 if profile else 0)
+    remat = 1 if cfg.remat else 0
+    want = {"copy_to_tp": 2 * L + 1 + 2 * L * remat,
+            "reduce_from_tp": 2 * L + 1 + L * remat, "gather_from_tp": 1,
+            "_global_norms": 1}
+    got = {k: v / n_steps for k, v in {**tp_calls, **clip_calls}.items()}
+    loss_rel = abs(out["losses"][0] - base["losses"][0]) / abs(
+        base["losses"][0])
+    norm_rel = abs(out["grad_norms"][0] - base["grad_norms"][0]) / abs(
+        base["grad_norms"][0])
+    out.update(calls_per_step=got, first_loss_rel=loss_rel,
+               first_grad_norm_rel=norm_rel)
+    log(f"{name}: FSDP2 DTensor parameters {out['dtensor_params']}; calls "
+        f"per step {got} (expected {want})")
+    log(f"{name}: beside llama_1b (phase 5), batch {base['batch']}: step "
+        f"{out['step_ms']:.1f} ms ({base['step_ms']:.1f}), "
+        f"{out['tokens_per_s']:.0f} tokens/s ({base['tokens_per_s']:.0f}), "
+        f"MFU {out['mfu']:.4f} ({base['mfu']:.4f}), peak "
+        f"{out['peak_mem_gib']:.2f} GiB ({base['peak_mem_gib']:.2f})"
+        + (f", idle share {out['profile']['idle_share']:.3f} "
+           f"({base['profile']['idle_share']:.3f})" if profile else "")
+        + f"; first loss {out['losses'][0]:.6f} ({base['losses'][0]:.6f}), "
+        f"relative gap {loss_rel:.3e} (<= {FSDP_LOSS_RTOL:.0e}); first grad "
+        f"norm {out['grad_norms'][0]:.6f} ({base['grad_norms'][0]:.6f}), "
+        f"relative gap {norm_rel:.3e} (<= {FSDP_GRAD_NORM_RTOL:.0e}); losses "
+        f"equal to phase 5's: {out['losses'] == base['losses']}")
+    dt, n_params = out["dtensor_params"]
+    if dt != n_params or dt == 0:
+        raise SmokeFailure(f"{name}: {dt} of {n_params} parameters are "
+                           "FSDP2 DTensors")
+    if got != want:
+        raise SmokeFailure(f"{name}: calls per step {got}, expected {want}")
+    if not (loss_rel <= FSDP_LOSS_RTOL and norm_rel <= FSDP_GRAD_NORM_RTOL):
+        raise SmokeFailure(f"{name}: the first step disagrees with phase 5's")
     return out
 
 
@@ -992,6 +1102,18 @@ def run(args) -> int:
                                             long_paths, by_path,
                                             args.profile)
 
+    # phase 9: llama_1b through the process-mesh path (FSDP2, tp, the
+    # global-norm clip) on a one-rank NCCL group, beside phase 5
+    mesh_path = "llama_1b_fsdp_tp_mesh1"
+    if args.skip_main:
+        by_path[mesh_path] = {k: None for k in A.launches}
+    else:
+        main[mesh_path] = fsdp_tp_path(
+            torch, A, models, smi, paths["llama_1b"][0], main["llama_1b"],
+            mesh_path, by_path, args.profile)
+        gc.collect()
+        torch.cuda.empty_cache()
+
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name],
                 "launches": by_path["gpt2_medium"][name],
@@ -1027,7 +1149,7 @@ def main() -> int:
                     "write torch.profiler's table to PATH with the path's "
                     "name before the suffix")
     ap.add_argument("--skip-main", action="store_true",
-                    help="skip the train paths, phases 4-6 and 8 "
+                    help="skip the train paths, phases 4-6, 8 and 9 "
                     "(debugging)")
     args = ap.parse_args()
     try:

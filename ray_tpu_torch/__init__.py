@@ -4,7 +4,7 @@ A package of its own beside ``ray_tpu``: it imports ``torch`` and
 ``numpy`` and nothing of JAX or of ``ray_tpu``. It holds the flagship
 decoder's training step (``models``), with its attention on hand-written
 CUDA flash kernels and ring attention over them (``ops``), on one device or
-over a dp x sp mesh (``parallel``). Entry points run on the card
+over a dp x fsdp x tp x sp mesh (``parallel``). Entry points run on the card
 (``device="cuda"``) unless the caller passes ``device="cpu"``.
 """
 

@@ -13,14 +13,17 @@ layout of one slice of the stacked tree (``wq [d, h, hd]``,
 (`ray_tpu_torch.models.convert.params_from_jax`).
 
 Parallelism comes in through a `ray_tpu_torch.parallel.Mesh` and its
-rules, as in JAX. This slice runs the dp and sp axes, with every parameter
-whole on every rank: a rank computes its rows and sequence columns, and
-attention over sp runs `ring_attention` on the flash kernels. On a loopback
+rules, as in JAX. On a process mesh (`build_mesh`) each rank holds its tp
+slice of every parameter (heads, kv_heads, mlp and vocab split, Megatron's
+column- and row-parallel layout with one all-reduce over tp after each
+block half, a vocab-parallel embedding, head and cross entropy), and FSDP2
+shards that slice over (dp, fsdp): each block, then the root module. A rank
+computes its rows and sequence columns; attention runs the flash kernels
+on the rank's heads, or `ring_attention` over sp on them. On a loopback
 mesh one process holds every sp shard: it runs the whole sequence and
 splits only attention into the ring's shards. The mixture-of-experts FFN
 (``n_experts > 0``, `moe.py`) runs on one rank only (its capacity and slot
-order are global in JAX); fsdp, tp, ep and pp are later slices of the port,
-and each of them raises here.
+order are global in JAX); ep and pp are not ported, and each raises here.
 """
 
 from __future__ import annotations
@@ -38,8 +41,12 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..ops.attention import dot_product_attention
 from ..ops.ring_attention import ring_attention, ring_transport
-from ..parallel.mesh import Mesh
-from ..parallel.sharding import DEFAULT_RULES, ShardingRules, shard_batch
+from ..parallel.mesh import AXIS_FSDP, AXIS_TP, Mesh
+from ..parallel.sharding import (DEFAULT_RULES, ShardingRules,
+                                 logical_sharding, shard_batch,
+                                 with_logical_constraint)
+from ..parallel.tensor_parallel import (copy_to_tp, gather_from_tp,
+                                        reduce_from_tp)
 from .moe import moe_ffn
 
 
@@ -58,7 +65,7 @@ class GPTConfig:
     positions: str = "learned"        # "learned" | "rope"
     rope_theta: float = 10000.0
     tie_embeddings: bool = True
-    # pipeline: a later slice of the port (must be 0)
+    # pipeline: not ported yet (must be 0)
     pp_microbatches: int = 0
     # mixture-of-experts FFN (moe.py) in every block when n_experts > 0
     n_experts: int = 0
@@ -178,23 +185,22 @@ _REMAT_CONTEXTS = {
 
 
 def _check_mesh(c: GPTConfig, mesh: Mesh) -> None:
-    """Refuse what this slice of the port leaves out."""
+    """Refuse what the port leaves out."""
     shape = mesh.shape
-    later = {"fsdp": "the fsdp/tp slice (FSDP2)",
-             "tp": "the fsdp/tp slice (DTensor)",
-             "ep": "the ep slice", "pp": "the pp slice"}
-    for axis, where in later.items():
+    for axis in ("ep", "pp"):
         if shape[axis] > 1:
             raise NotImplementedError(
-                f"mesh axis {axis}={shape[axis]} is not ported yet; it comes "
-                f"with {where}")
-    if c.n_experts > 0 and shape["dp"] * shape["sp"] > 1:
+                f"mesh axis {axis}={shape[axis]} is not ported yet (queue 1 "
+                "of ROADMAP.md: ep, pp and MoE across ranks)")
+    if c.n_experts > 0 and math.prod(
+            shape[a] for a in ("dp", "fsdp", "sp", "tp")) > 1:
         # JAX routes over the global token set: capacity from the global
         # T, slot priority in global token order, the load-balance loss a
-        # mean over all tokens. A per-rank moe_ffn would differ.
+        # mean over all tokens; a per-rank moe_ffn would differ, and its
+        # expert FFN is not split over tp
         raise NotImplementedError(
-            "the MoE FFN across dp/sp ranks routes over the global token "
-            "set; it comes with the ep slice")
+            "the MoE FFN across ranks is not ported yet (queue 1 of "
+            "ROADMAP.md: ep, pp and MoE across ranks)")
 
 
 # --- model -----------------------------------------------------------------
@@ -242,13 +248,22 @@ class Block(nn.Module):
             self.bias1 = const(0.0, d)
             self.bias2 = const(0.0, d)
 
+    def forward(self, block_fn, x, positions):
+        """block_fn(self, x, positions): the model's computation of this
+        block, called through the module so that FSDP2's hooks gather the
+        block's parameters around it."""
+        return block_fn(self, x, positions)
+
 
 class GPT(nn.Module):
-    """`forward_with_aux` / `apply` (= `forward`) -> logits, `loss`.
+    """`forward` (= `forward_with_aux`) -> (logits, aux), `apply` ->
+    logits, `loss`.
 
     Parameters are initialised from `seed` with a `torch.Generator` on
     `device` (normal, std 0.02; residual projections 0.02/sqrt(2L)), as the
     JAX model's `init` does with its key; the two give different numbers.
+    On a process mesh every rank draws the same full weights and keeps its
+    shards of them.
     """
 
     def __init__(self, config: GPTConfig, device="cuda", seed: int = 0,
@@ -259,21 +274,22 @@ class GPT(nn.Module):
         if c.pp_microbatches:
             # with experts too: JAX refuses EP+PP combined as well
             raise NotImplementedError("pipeline parallelism is not ported yet")
-        self.mesh = mesh
-        self.rules = rules if rules is not None else DEFAULT_RULES
-        # the loss and the gradients sum over ranks: a process mesh with
-        # dp x sp > 1 (a loopback mesh holds every shard in this process)
-        self.sums_over_ranks = (mesh is not None and not mesh.loopback and
-                                mesh.shape["dp"] * mesh.shape["sp"] > 1)
-        self._ring = None
         if mesh is not None:
             _check_mesh(c, mesh)
-            if self._sp_size() > 1:
-                axis = self.rules.mesh_axes("act_seq")
-                if not isinstance(axis, str):
-                    raise ValueError("ring attention needs act_seq mapped to "
-                                     f"a single mesh axis, got {axis!r}")
-                self._ring = ring_transport(mesh.group(axis))
+        self.mesh = mesh
+        self.rules = rules if rules is not None else DEFAULT_RULES
+        # the loss and the gradients sum over ranks on a process mesh (of
+        # any size, one program as GSPMD runs one: a mesh of one rank takes
+        # the same collectives); a loopback mesh holds every shard here
+        self.sums_over_ranks = mesh is not None and not mesh.loopback
+        self._tp = mesh.group(AXIS_TP) if self.sums_over_ranks else None
+        self._ring = None
+        if self._sp_size() > 1:
+            axis = self.rules.mesh_axes("act_seq")
+            if not isinstance(axis, str):
+                raise ValueError("ring attention needs act_seq mapped to "
+                                 f"a single mesh axis, got {axis!r}")
+            self._ring = ring_transport(mesh.group(axis))
         if c.remat and c.remat_policy not in _REMAT_CONTEXTS:
             raise ValueError(
                 f"remat_policy must be one of {sorted(_REMAT_CONTEXTS)}, got "
@@ -300,6 +316,78 @@ class GPT(nn.Module):
                                                    dtype=c.param_dtype))
         if not c.tie_embeddings:
             self.lm_head = normal(d, c.vocab_size)
+        if self.sums_over_ranks:
+            self._shard()
+
+    def _shard(self) -> None:
+        """This rank's layout on a process mesh: every parameter cut to its
+        tp slice by the rules, then FSDP2 over the (dp, fsdp) mesh, each
+        block and then the root; the gradients are summed, not averaged
+        (the loss is already each rank's share of the global one)."""
+        from torch.distributed.fsdp import fully_shard
+
+        tp_rules = self.rules.only(AXIS_TP)
+        axes = self.param_logical_axes()
+        for name, p in list(self.named_parameters()):
+            owner, _, attr = name.rpartition(".")
+            local = p.detach()[logical_sharding(self.mesh, tp_rules,
+                                                axes[name], p.shape)]
+            setattr(self.get_submodule(owner), attr,
+                    nn.Parameter(local.clone()))
+        self._vocab_lo = logical_sharding(self.mesh, tp_rules, ("vocab",),
+                                          (self.config.vocab_size,))[0].start
+        for module in [*self.blocks, self]:
+            fully_shard(module, mesh=self.mesh.data_mesh)
+            module.set_gradient_divide_factor(1.0)
+            module.set_force_sum_reduction_for_comms(True)
+
+    def param_logical_axes(self) -> Dict[str, Tuple[Optional[str], ...]]:
+        """Parameter name -> its logical axes: JAX's table
+        (``ray_tpu/models/gpt.py``, ``GPT.param_logical_axes``) keyed by
+        the port's names, each block's without the stacked "layers" axis."""
+        c = self.config
+        block = {
+            "norm1": (None,),
+            "norm2": (None,),
+            "wq": ("embed", "heads", "head_dim"),
+            "wk": ("embed", "kv_heads", "head_dim"),
+            "wv": ("embed", "kv_heads", "head_dim"),
+            "wo": ("heads", "head_dim", "embed"),
+        }
+        if c.n_experts > 0:
+            block["router"] = ("embed", None)
+            block["w_up"] = ("expert", "embed", "mlp")
+            block["w_gate"] = ("expert", "embed", "mlp")
+            block["w_down"] = ("expert", "mlp", "embed")
+        else:
+            block["w_up"] = ("embed", "mlp")
+            block["w_down"] = ("mlp", "embed")
+            if c.activation == "swiglu":
+                block["w_gate"] = ("embed", "mlp")
+        if c.norm == "layernorm":
+            block["bias1"] = (None,)
+            block["bias2"] = (None,)
+        axes = {"tok_embed": ("vocab", "embed"), "norm_f": (None,)}
+        if c.positions == "learned":
+            axes["pos_embed"] = (None, "embed")
+        if c.norm == "layernorm":
+            axes["bias_f"] = (None,)
+        if not c.tie_embeddings:
+            axes["lm_head"] = ("embed", "vocab")
+        for i in range(c.n_layers):
+            axes.update({f"blocks.{i}.{k}": v for k, v in block.items()})
+        return axes
+
+    def param_shard_axes(self) -> Dict[str, Tuple[str, ...]]:
+        """Parameter name -> the mesh axes its local shard on this rank is
+        cut over (fsdp by FSDP2, tp by the rules): the groups over which
+        sums of a gradient's squares run. Empty off a process mesh."""
+        if not self.sums_over_ranks:
+            return {n: () for n, _ in self.named_parameters()}
+        tp_rules = self.rules.only(AXIS_TP)
+        return {n: (AXIS_FSDP,) + ((AXIS_TP,) if any(
+            tp_rules.mesh_axes(a) for a in ax) else ())
+            for n, ax in self.param_logical_axes().items()}
 
     @property
     def device(self) -> torch.device:
@@ -349,12 +437,23 @@ class GPT(nn.Module):
         out = x.reshape(-1, d_in) @ w.reshape(d_in, -1)
         return out.view(*lead, *w.shape[1:])
 
+    def _tp_in(self, x):
+        """The input of column-parallel products (gradient summed over tp);
+        off a process mesh, `x`."""
+        return x if self._tp is None else copy_to_tp(x, self._tp)
+
+    def _tp_out(self, x):
+        """The partial output of a row-parallel product, summed over tp;
+        off a process mesh, `x`."""
+        return x if self._tp is None else reduce_from_tp(x, self._tp)
+
     def _block(self, blk: Block, x, positions):
         """One transformer block. x: [B, S, D] in the activation dtype ->
-        (x, MoE load-balance loss, or None for a dense block)."""
+        (x, MoE load-balance loss, or None for a dense block). Under tp the
+        projections hold this rank's heads and mlp columns."""
         c = self.config
         dt = c.dtype
-        h = self._norm(x, blk.norm1, getattr(blk, "bias1", None))
+        h = self._tp_in(self._norm(x, blk.norm1, getattr(blk, "bias1", None)))
         q = self._proj(h, blk.wq.to(dt))                     # [B,S,H,hd]
         k = self._proj(h, blk.wk.to(dt))
         v = self._proj(h, blk.wv.to(dt))
@@ -366,7 +465,8 @@ class GPT(nn.Module):
         attn = self._attention(q.transpose(1, 2), k.transpose(1, 2),
                                v.transpose(1, 2)).transpose(1, 2)
         attn = attn.reshape(*x.shape[:2], -1)
-        x = x + self._proj(attn, blk.wo.to(dt).reshape(-1, c.d_model))
+        x = x + self._tp_out(self._proj(attn,
+                                        blk.wo.to(dt).reshape(-1, c.d_model)))
 
         h = self._norm(x, blk.norm2, getattr(blk, "bias2", None))
         if c.n_experts > 0:
@@ -375,12 +475,13 @@ class GPT(nn.Module):
                                 capacity_factor=c.moe_capacity_factor,
                                 dtype=dt)
             return x + down, moe["moe_aux_loss"]
+        h = self._tp_in(h)
         up = self._proj(h, blk.w_up.to(dt))
         if c.activation == "swiglu":
             act = F.silu(self._proj(h, blk.w_gate.to(dt))) * up
         else:
             act = F.gelu(up, approximate="tanh")
-        return x + self._proj(act, blk.w_down.to(dt)), None
+        return x + self._tp_out(self._proj(act, blk.w_down.to(dt))), None
 
     def _attention(self, q, k, v):
         """[B, H, S, hd] -> [B, H, S, hd]: flash attention, or the ring over
@@ -400,6 +501,9 @@ class GPT(nn.Module):
                               impl=c.attention_impl)
 
     def _run_block(self, blk, x, positions):
+        """The block_fn that `Block.forward` calls: `_block`, under the
+        per-block checkpoint when remat is on (FSDP2's hooks lie outside
+        it, so its recompute runs on the block's gathered parameters)."""
         c = self.config
         if not (c.remat and torch.is_grad_enabled()):
             return self._block(blk, x, positions)
@@ -408,16 +512,30 @@ class GPT(nn.Module):
         return checkpoint(self._block, blk, x, positions,
                           use_reentrant=False, **kw)
 
+    def _embed(self, tokens):
+        """Token embeddings in the activation dtype. Under tp the table
+        holds this rank's vocab rows: a masked local lookup, summed over tp
+        (JAX all-gathers the table instead; the sums add zeros, so the
+        numbers are the same)."""
+        tbl = self.tok_embed.to(self.config.dtype)
+        if self._tp is None:
+            return F.embedding(tokens, tbl)
+        local = tokens - self._vocab_lo
+        mine = (local >= 0) & (local < tbl.shape[0])
+        x = F.embedding(torch.where(mine, local, 0), tbl)
+        return reduce_from_tp(torch.where(mine[..., None], x, 0), self._tp)
+
     # -- forward -----------------------------------------------------------
 
-    def forward_with_aux(self, tokens: torch.Tensor,
-                         positions: Optional[torch.Tensor] = None
-                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    def forward(self, tokens: torch.Tensor,
+                positions: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """tokens [B, S] int -> (logits [B, S, V] f32, {"moe_aux_loss": the
         mean over layers of the MoE load-balance loss, 0 when dense}).
 
         On a process mesh with sp > 1, `tokens` are this rank's sequence
-        shard, and `positions` default to the shard's global ones."""
+        shard, and `positions` default to the shard's global ones; under tp
+        the logits are this rank's vocab columns."""
         c = self.config
         if positions is None:
             offset = 0
@@ -426,25 +544,46 @@ class GPT(nn.Module):
                     * tokens.shape[1]
             positions = torch.arange(offset, offset + tokens.shape[1],
                                      device=tokens.device).expand(tokens.shape)
-        x = F.embedding(tokens, self.tok_embed.to(c.dtype))
+        x = self._embed(tokens)
         if c.positions == "learned":
             x = x + F.embedding(positions, self.pos_embed.to(c.dtype))
         aux = []
         for blk in self.blocks:
-            x, layer_aux = self._run_block(blk, x, positions)
+            x, layer_aux = blk(self._run_block, x, positions)
             aux.append(layer_aux)
-        x = self._norm(x, self.norm_f, getattr(self, "bias_f", None))
+        x = self._tp_in(self._norm(x, self.norm_f,
+                                   getattr(self, "bias_f", None)))
         head = (self.tok_embed.t() if c.tie_embeddings else self.lm_head)
         logits = self._proj(x, head.to(c.dtype))
         aux_loss = (torch.stack(aux).mean() if c.n_experts > 0 else
                     torch.zeros((), device=logits.device))
-        return logits.float(), {"moe_aux_loss": aux_loss}
+        # a new tensor also in f32 (FSDP2 warns of a view as the output)
+        return logits.to(torch.float32, copy=True), {"moe_aux_loss": aux_loss}
+
+    def forward_with_aux(self, tokens, positions=None):
+        """`forward`, under JAX's name; called through the module, so that
+        FSDP2's hooks run."""
+        return self(tokens, positions)
 
     def apply(self, tokens, positions=None) -> torch.Tensor:
         """tokens: [B, S] → logits [B, S, V] (f32)."""
-        return self.forward_with_aux(tokens, positions)[0]
+        return self(tokens, positions)[0]
 
-    forward = apply
+    def _lse_and_true_logit(self, logits, targets):
+        """Per position, the log-sum-exp of the logits and the target's
+        logit, in f32. Under tp each rank holds a vocab slice: its own
+        log-sum-exp and (where the target falls in its slice) the target's
+        logit are gathered over tp and combined; with one rank the
+        combination returns them unchanged."""
+        lse = torch.logsumexp(logits, dim=-1)                 # [B, S]
+        if self._tp is None:
+            return lse, logits.gather(-1, targets[..., None])[..., 0]
+        local = targets - self._vocab_lo
+        mine = (local >= 0) & (local < logits.shape[-1])
+        true_logit = torch.where(mine, logits.gather(
+            -1, torch.where(mine, local, 0)[..., None])[..., 0], 0.0)
+        parts = gather_from_tp(torch.stack([lse, true_logit]), self._tp)
+        return torch.logsumexp(parts[:, 0], dim=0), parts[:, 1].sum(0)
 
     def loss(self, batch: Dict[str, torch.Tensor]
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -457,16 +596,19 @@ class GPT(nn.Module):
         by the global mask count, and the metrics are global.
         """
         c = self.config
+        global_shape = (*batch["tokens"].shape, c.vocab_size)
         batch = shard_batch(self.mesh, batch, self.rules)
         tokens, targets, mask = (batch["tokens"], batch["targets"],
                                  batch["loss_mask"])
-        logits, aux = self.forward_with_aux(tokens, batch["positions"])
-        lse = torch.logsumexp(logits, dim=-1)                 # [B, S]
-        true_logit = logits.gather(-1, targets[..., None])[..., 0]
+        logits, aux = self(tokens, batch["positions"])
+        with_logical_constraint(logits, "act_batch", "act_seq", "act_vocab",
+                                global_shape=global_shape, rules=self.rules,
+                                mesh=self.mesh)
+        lse, true_logit = self._lse_and_true_logit(logits, targets)
         nll = lse - true_logit
         count = mask.sum()
         if self.sums_over_ranks:
-            count = _all_reduce(count.detach())
+            count = self._sum_over_batch(count.detach())
         total = count.clamp(min=1.0)
         nll_sum = (nll * mask).sum()
         loss = nll_sum / total
@@ -478,7 +620,7 @@ class GPT(nn.Module):
             "tokens": count,
         }
         if self.sums_over_ranks:
-            loss_g, ppl_g = _all_reduce(torch.stack(
+            loss_g, ppl_g = self._sum_over_batch(torch.stack(
                 [metrics["loss"], metrics["ppl_log"]]))
             metrics.update(loss=loss_g, ppl_log=ppl_g)
         if c.n_experts > 0:
@@ -487,11 +629,11 @@ class GPT(nn.Module):
             metrics["loss"] = loss.detach()
         return loss, metrics
 
+    def _sum_over_batch(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum of `t` over the ranks that hold different parts of the batch
+        (dp x fsdp x sp), in place; the tp ranks of one part hold the same
+        numbers and are not summed."""
+        import torch.distributed as dist
 
-def _all_reduce(t: torch.Tensor) -> torch.Tensor:
-    """Sum of `t` over every rank of the default group (the dp x sp
-    replicas: this slice's meshes span it and keep parameters whole)."""
-    import torch.distributed as dist
-
-    dist.all_reduce(t)
-    return t
+        dist.all_reduce(t, group=self.mesh.batch_group)
+        return t

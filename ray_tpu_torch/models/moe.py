@@ -4,7 +4,7 @@ Counterpart of ``ray_tpu/models/moe.py``: top-k routing with
 capacity-bounded dense dispatch. Token -> (expert, slot) assignment becomes
 one-hot dispatch and combine tensors, and the expert work three batched
 products over a leading expert axis. Expert parallelism (the ``ep`` mesh
-axis) is a later slice of the port.
+axis) is not ported yet.
 
 The products without a batch dimension (router, dispatch, combine) run as
 2-D ``torch.mm``, the per-expert ones as ``torch.bmm``: the model's "dots"

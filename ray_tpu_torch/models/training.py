@@ -1,5 +1,5 @@
 """Training step: optimizer, TrainState, train/eval step, on one device or
-over a dp x sp mesh.
+over a dp x fsdp x tp x sp mesh.
 
 Counterpart of ``ray_tpu/models/training.py``. The optimizer is written out
 by hand with optax's semantics for
@@ -18,25 +18,31 @@ The step updates parameters and moments in place, and clips the gradients
 in their own buffers (the JAX step donates its state buffers, and XLA fuses
 the update, for the same reason: one copy of the state in memory).
 
-On a mesh (`ray_tpu_torch.parallel`) every rank holds the whole model and
-takes the global batch, of which the model's loss reads this rank's rows
-and sequence columns (`shard_batch`); the step sums the gradients over the
-dp x sp ranks in one all-reduce before the update, which then sees the
-global gradients (and takes their global norm) exactly as on one device.
+On a process mesh (`ray_tpu_torch.parallel`) every rank takes the global
+batch, of which the model's loss reads this rank's rows and sequence
+columns (`shard_batch`), and holds its shards of the parameters (the
+model's tp slice, FSDP2's part of it over fsdp). FSDP2 sums the gradients
+over dp and fsdp in its reduce-scatter; the step sums them over sp in one
+all-reduce; tp-sharded gradients are never summed. The update runs on the
+local shards, and its clip takes the norm of the full logical gradient:
+the squared norms of the shards summed over the axes each is cut over.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
-from ..parallel.mesh import Mesh
+from ..parallel.mesh import AXIS_SP, Mesh
 from .gpt import GPT, resolve_device
 
 Params = Dict[str, torch.Tensor]
+# (process group, parameter names) pairs: see `Optimizer.update_`
+NormSums = Sequence[Tuple[Any, List[str]]]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,18 +78,28 @@ class Optimizer:
                 "nu": {n: torch.zeros_like(p) for n, p in params.items()}}
 
     def update_(self, params: Params, grads: List[torch.Tensor],
-                state: Dict) -> torch.Tensor:
+                state: Dict, norm_sums: NormSums = ()) -> torch.Tensor:
         """One clipped AdamW update, in place. Returns the global norm of
         the unclipped grads (a 0-d tensor; no host sync). `grads` are
         clipped in place, so their values are spent; the rest of the update
         runs in chunks of at most `_CHUNK_NUMEL` elements (or one larger
-        tensor), which bounds its temporaries to two such chunks."""
+        tensor), which bounds its temporaries to two such chunks.
+
+        Sharded state: `params` and `grads` are this rank's local shards,
+        and `norm_sums` lists (process group, parameter names) pairs: the
+        squared norms of those parameters' shards are summed over the group
+        (`norm_sums_for`), so the norm is that of the full gradients, each
+        replicated parameter counted once. Over groups of one rank the
+        result equals the unsharded one bit for bit (sqrt(x * x) == x in
+        binary floating point)."""
         names = list(params)
         p = [params[n] for n in names]
         mu = [state["mu"][n] for n in names]
         nu = [state["nu"][n] for n in names]
-        g_norm = torch.linalg.vector_norm(torch.stack(
-            torch._foreach_norm(grads)))
+        norms = torch.stack(torch._foreach_norm(grads))
+        if norm_sums:
+            norms = _global_norms(norms, names, norm_sums)
+        g_norm = torch.linalg.vector_norm(norms)
         # optax: select(g_norm < c, g, g / g_norm * c)
         clip = torch.where(g_norm < self.grad_clip, torch.ones_like(g_norm),
                            self.grad_clip / g_norm)
@@ -109,6 +125,34 @@ class Optimizer:
 
 # Elements per chunk of `Optimizer.update_` (2**26: 256 MiB of f32)
 _CHUNK_NUMEL = 1 << 26
+
+
+def _global_norms(norms: torch.Tensor, names: List[str],
+                  norm_sums: NormSums) -> torch.Tensor:
+    """Per-parameter norms of the local shards -> the norms of the full
+    parameters: each square summed over the groups `norm_sums` names it
+    in."""
+    import torch.distributed as dist
+
+    sq = norms.square()
+    index = {n: i for i, n in enumerate(names)}
+    for group, members in norm_sums:
+        idx = torch.tensor([index[n] for n in members], device=sq.device)
+        part = sq.index_select(0, idx)
+        dist.all_reduce(part, group=group)
+        sq.index_copy_(0, idx, part)
+    return sq.sqrt()
+
+
+def norm_sums_for(mesh: Mesh, shard_axes: Dict[str, Tuple[str, ...]]
+                  ) -> NormSums:
+    """`Optimizer.update_`'s `norm_sums` for parameters whose local shards
+    are cut over the mesh axes `shard_axes` gives each (a model's
+    ``param_shard_axes()``): one (group, names) pair per axis."""
+    axes = sorted({a for ax in shard_axes.values() for a in ax})
+    return tuple((mesh.group(axis),
+                  [n for n, ax in shard_axes.items() if axis in ax])
+                 for axis in axes)
 
 
 def _chunks(tensors: List[torch.Tensor]) -> List[Tuple[int, int]]:
@@ -140,8 +184,10 @@ def make_optimizer(learning_rate: float = 3e-4,
 @dataclasses.dataclass
 class TrainState:
     step: int
-    params: Params          # the model's own parameters (updated in place)
-    opt_state: Dict
+    params: Params          # the model's own parameters (updated in place;
+    #                         under FSDP2 DTensors, whose local shards the
+    #                         update writes)
+    opt_state: Dict         # mu and nu: local tensors like the shards
 
 
 def _check_mesh(model: GPT, mesh: Optional[Mesh]) -> None:
@@ -157,22 +203,35 @@ def init_train_state(model: GPT, optimizer: Optimizer, device="cuda",
     """Optimizer state for `model`'s parameters on `device` (the model is
     moved there). The parameters were initialised by `GPT(config, seed=)`,
     where the JAX version initialises them here from its key; on a mesh
-    every rank builds the same weights from the same seed."""
+    every rank builds the same weights from the same seed and keeps its
+    shards, and mu and nu shard like them (JAX's `state_shardings`)."""
     device = resolve_device(device)
     _check_mesh(model, mesh)
     model.to(device)
     params = dict(model.named_parameters())
-    return TrainState(step=0, params=params,
-                      opt_state=optimizer.init(params))
+    with torch.no_grad():
+        opt_state = optimizer.init(_locals(params))
+    return TrainState(step=0, params=params, opt_state=opt_state)
 
 
-def _all_reduce_grads(grads: List[torch.Tensor]) -> None:
-    """Sum `grads` over every rank, in place, as one all-reduce of one
-    flat buffer."""
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """This rank's shard of a DTensor (FSDP2's parameters and gradients):
+    under no_grad, the plain tensor over the DTensor's own storage. A
+    plain tensor as it is."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _locals(params: Params) -> Params:
+    return {n: _local(p) for n, p in params.items()}
+
+
+def _all_reduce_grads(grads: List[torch.Tensor], group) -> None:
+    """Sum `grads` over `group`, in place, as one all-reduce of one flat
+    buffer."""
     import torch.distributed as dist
 
     flat = torch.cat([g.reshape(-1) for g in grads])
-    dist.all_reduce(flat)
+    dist.all_reduce(flat, group=group)
     offset = 0
     for g in grads:
         g.copy_(flat[offset:offset + g.numel()].view_as(g))
@@ -191,17 +250,23 @@ def make_train_step(model: GPT, optimizer: Optimizer, device="cuda",
     if model.device.type != device.type:
         raise ValueError(f"model is on {model.device}, step asked for {device}")
     _check_mesh(model, mesh)
+    norm_sums, sp_group = (), None
+    if model.sums_over_ranks:
+        norm_sums = norm_sums_for(model.mesh, model.param_shard_axes())
+        if model.mesh.shape[AXIS_SP] > 1:
+            sp_group = model.mesh.group(AXIS_SP)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         for p in state.params.values():
             p.grad = None
         loss, metrics = model.loss(batch)
         loss.backward()
-        grads = [p.grad for p in state.params.values()]
         with torch.no_grad():
-            if model.sums_over_ranks:
-                _all_reduce_grads(grads)
-            g_norm = optimizer.update_(state.params, grads, state.opt_state)
+            grads = [_local(p.grad) for p in state.params.values()]
+            if sp_group is not None:
+                _all_reduce_grads(grads, sp_group)
+            g_norm = optimizer.update_(_locals(state.params), grads,
+                                       state.opt_state, norm_sums)
         for p in state.params.values():
             p.grad = None
         metrics = dict(metrics)

@@ -2,9 +2,10 @@
 
 Counterpart of ``ray_tpu.parallel``: a `MeshSpec` with the named axes
 (dp/fsdp/tp/sp/pp/ep), a rank's `Mesh` over `torch.distributed` process
-groups (or the one-process `loopback_mesh`), and the logical rules table.
-This slice runs the dp and sp axes; the parameters stay whole on every
-rank.
+groups (or the one-process `loopback_mesh`), the logical rules table with
+the parameter shards it gives a rank, and Megatron's tensor-parallel
+autograd functions (`tensor_parallel`). The port runs dp, fsdp, tp and sp;
+ep and pp are not ported yet.
 """
 
 from .mesh import (  # noqa: F401
@@ -24,5 +25,9 @@ from .mesh import (  # noqa: F401
 from .sharding import (  # noqa: F401
     DEFAULT_RULES,
     ShardingRules,
+    gather_params,
+    logical_sharding,
     shard_batch,
+    shard_params,
+    with_logical_constraint,
 )

@@ -9,15 +9,16 @@ only axis larger than 1 is ``sp``: it holds every sp shard in this process,
 as JAX's virtual-device meshes hold every device in one process, and its sp
 "group" is an in-process ring (`ray_tpu_torch.ops.ring_attention.LoopbackRing`).
 
-Axes (rank-major order, innermost last, so sp neighbours are adjacent
-ranks):
+Axes (rank-major order, innermost last, so tp neighbours are adjacent
+ranks, then sp neighbours):
 
-  ``dp``   data parallel (gradient all-reduce)
-  ``fsdp`` sharded data parallel (a later slice of the port)
-  ``tp``   tensor parallel (a later slice)
+  ``dp``   data parallel (FSDP2 replicates over it: HSDP when fsdp > 1)
+  ``fsdp`` sharded data parallel (FSDP2 shards parameters, gradients and
+           optimizer state over it)
+  ``tp``   tensor parallel (Megatron-style: heads, mlp and vocab split)
   ``sp``   sequence parallel (ring attention)
-  ``pp``   pipeline parallel (a later slice)
-  ``ep``   expert parallel (a later slice)
+  ``pp``   pipeline parallel (not ported yet)
+  ``ep``   expert parallel (not ported yet)
 """
 
 from __future__ import annotations
@@ -98,12 +99,17 @@ class Mesh:
     `coords` is this rank's coordinate on each axis; `groups` maps an axis
     to its process group (or, for a loopback mesh, to the in-process ring
     of its sp shards). A loopback mesh holds every shard of every axis
-    here, so it slices nothing."""
+    here, so it slices nothing. A process mesh also carries `data_mesh`,
+    the ("dp", "fsdp") `DeviceMesh` that FSDP2 shards over, and
+    `batch_group`, the group of the ranks that hold different parts of the
+    batch and the same parameter shards: dp x fsdp x sp (never tp)."""
 
     spec: MeshSpec
     coords: Dict[str, int]
     groups: Dict[str, Any] = dataclasses.field(default_factory=dict)
     loopback: bool = False
+    data_mesh: Any = None
+    batch_group: Any = None
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -136,7 +142,8 @@ def build_mesh(spec: Optional[MeshSpec] = None,
                device_type: str = "cuda") -> Mesh:
     """This rank's `Mesh` over the default process group (which the caller
     has initialised): `init_device_mesh` with the canonical axis names, one
-    process group per axis."""
+    process group per axis, the ("dp", "fsdp") sub-mesh and the batch group
+    (every rank calls this, so every rank creates every group)."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -145,7 +152,17 @@ def build_mesh(spec: Optional[MeshSpec] = None,
                                    mesh_dim_names=AXIS_ORDER)
     coords = dict(zip(AXIS_ORDER, device_mesh.get_coordinate()))
     groups = {axis: device_mesh.get_group(axis) for axis in AXIS_ORDER}
-    return Mesh(spec, coords, groups)
+    # ranks by coordinate, the batch axes last: one group per (pp, ep, tp)
+    batch_axes = (AXIS_DP, AXIS_FSDP, AXIS_SP)
+    order = ([AXIS_ORDER.index(a) for a in AXIS_ORDER
+              if a not in batch_axes]
+             + [AXIS_ORDER.index(a) for a in batch_axes])
+    n_batch = math.prod(getattr(spec, a) for a in batch_axes)
+    ranks = device_mesh.mesh.permute(order).reshape(-1, n_batch).tolist()
+    batch_group, _ = dist.new_subgroups_by_enumeration(ranks)
+    return Mesh(spec, coords, groups,
+                data_mesh=device_mesh[AXIS_DP, AXIS_FSDP],
+                batch_group=batch_group)
 
 
 def loopback_mesh(spec: MeshSpec) -> Mesh:

@@ -176,13 +176,14 @@ def _mesh(**spec):
 
 
 # experts with a pipeline: refused as JAX refuses EP+PP (gpt.py:175-178);
-# the mesh axes that change how parameters are stored (fsdp, tp, ep, pp)
-# are later slices; MoE across dp/sp ranks routes over the global tokens
+# the ep and pp mesh axes are not ported; MoE across ranks (dp, fsdp, sp:
+# JAX routes over the global tokens; tp: the expert FFN is not split) waits
+# for the ep slice
 @pytest.mark.parametrize("kw, mesh", [
     pytest.param(dict(n_experts=4, pp_microbatches=2), None, id="kw0"),
     pytest.param(dict(pp_microbatches=2), None, id="kw1"),
-    pytest.param({}, dict(dp=1, fsdp=2), id="fsdp2"),
-    pytest.param({}, dict(dp=1, tp=2), id="tp2"),
+    pytest.param(dict(n_experts=4), dict(dp=1, fsdp=2), id="fsdp2"),
+    pytest.param(dict(n_experts=4), dict(dp=1, tp=2), id="tp2"),
     pytest.param({}, dict(dp=1, ep=2), id="ep2"),
     pytest.param({}, dict(dp=1, pp=2), id="pp2"),
     pytest.param(dict(n_experts=4), dict(dp=2), id="moe_dp2"),

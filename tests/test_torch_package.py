@@ -26,7 +26,8 @@ def test_import_leaves_jax_and_ray_tpu_out():
     code = ("import sys, ray_tpu_torch, ray_tpu_torch.models.training, "
             "ray_tpu_torch.models.moe, "
             "ray_tpu_torch.models.convert, ray_tpu_torch.ops._ext, "
-            "ray_tpu_torch.parallel, ray_tpu_torch.ops.ring_attention; "
+            "ray_tpu_torch.parallel, ray_tpu_torch.parallel.tensor_parallel, "
+            "ray_tpu_torch.ops.ring_attention; "
             "sys.path.insert(0, 'tests'); import torch_dist_worker; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ray_tpu', 'optax', 'triton')]; "

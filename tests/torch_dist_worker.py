@@ -120,7 +120,7 @@ def ring_rank(rank, world, inputs_path, causal):
 # --- the model and the train step --------------------------------------------
 
 def _model(config_kw, spec_kw, params_path, family="llama_tiny"):
-    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.models import convert, gpt
     from ray_tpu_torch.parallel import MeshSpec, build_mesh
 
     mesh = build_mesh(MeshSpec(**spec_kw), device_type="cpu")
@@ -129,19 +129,29 @@ def _model(config_kw, spec_kw, params_path, family="llama_tiny"):
     else:
         cfg = gpt.GPTConfig(dtype=torch.float32, **config_kw)
     model = gpt.GPT(cfg, device="cpu", seed=0, mesh=mesh)
-    init = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+    init = torch.cat([t.reshape(-1) for t in
+                      convert.full_state_dict(model).values()])
     if params_path is not None:
         data = np.load(params_path)
-        model.load_state_dict({n: torch.tensor(data[n]) for n in data.files})
+        convert.load_full_state_dict(
+            model, {n: torch.tensor(data[n]) for n in data.files})
     return model, mesh, init.numpy()
+
+
+def _coords(mesh):
+    """This rank's coordinate on each axis, in AXIS_ORDER."""
+    from ray_tpu_torch.parallel import AXIS_ORDER
+
+    return np.array([mesh.coords[a] for a in AXIS_ORDER])
 
 
 def train_rank(rank, world, spec_kw, params_path, tokens_path, steps,
                opt_kw):
     """`steps` train steps of f32 llama_tiny on this rank's part of the
     global batch: losses, grad norms and tokens each step, the final
-    parameters, and the weights the seed gave before the load."""
-    from ray_tpu_torch.models import training
+    parameters gathered to full, and the weights the seed gave before the
+    load."""
+    from ray_tpu_torch.models import convert, training
 
     model, mesh, init = _model({}, spec_kw, params_path)
     opt = training.make_optimizer(**opt_kw)
@@ -154,10 +164,10 @@ def train_rank(rank, world, spec_kw, params_path, tokens_path, steps,
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
         tokens.append(float(m["tokens"]))
-    out = {f"param/{n}": p.detach().numpy() for n, p in state.params.items()}
+    out = {f"param/{n}": t.numpy()
+           for n, t in convert.full_state_dict(model).items()}
     out.update(losses=np.array(losses), grad_norms=np.array(norms),
-               tokens=np.array(tokens), init=init,
-               coords=np.array([mesh.coords[a] for a in ("dp", "sp")]))
+               tokens=np.array(tokens), init=init, coords=_coords(mesh))
     eval_metrics = training.eval_step_fn(model, device="cpu", mesh=mesh)(
         batch)
     out["eval_loss"] = np.array(float(eval_metrics["loss"]))
@@ -165,8 +175,10 @@ def train_rank(rank, world, spec_kw, params_path, tokens_path, steps,
 
 
 def forward_rank(rank, world, spec_kw, config_kw, params_path, tokens_path):
-    """Logits of this rank's sequence shard and the global loss of a
-    GPT-2-family model (learned positions) on a mesh."""
+    """Logits of this rank's sequence shard (its vocab columns under tp),
+    the global loss and the full gradients of a GPT-2-family model (learned
+    positions, LayerNorm biases, tied embeddings) on a mesh."""
+    from ray_tpu_torch.models import convert
     from ray_tpu_torch.parallel import shard_batch
 
     model, mesh, _ = _model(config_kw, spec_kw, params_path, family="gpt2")
@@ -175,7 +187,59 @@ def forward_rank(rank, world, spec_kw, config_kw, params_path, tokens_path):
         # apply takes this rank's tokens (positions default to the shard's
         # global ones); loss takes the global batch
         logits = model.apply(shard_batch(mesh, {"tokens": tokens})["tokens"])
-        loss, metrics = model.loss({"tokens": tokens})
-    return {"logits": logits.numpy(), "loss": np.array(float(loss)),
-            "global_loss": np.array(float(metrics["loss"])),
-            "coords": np.array([mesh.coords[a] for a in ("dp", "sp")])}
+    loss, metrics = model.loss({"tokens": tokens})
+    loss.backward()
+    grads = convert.full_state_dict(
+        model, {n: p.grad for n, p in model.named_parameters()})
+    out = {f"grad/{n}": g.numpy() for n, g in grads.items()}
+    out.update(logits=logits.numpy(), loss=np.array(float(loss)),
+               global_loss=np.array(float(metrics["loss"])),
+               coords=_coords(mesh))
+    return out
+
+
+def clip_rank(rank, world, spec_kw, inputs_path, logical, opt_kw):
+    """`Optimizer.update_` on this rank's shards (by `shard_params` over
+    every mesh axis) of full params and grads, with the norm summed over
+    the axes each is cut over; three updates. Returns the norms, the
+    updated params gathered to full, and whether the same update on one
+    rank's whole tensors with `norm_sums` over groups of one rank equals
+    the update without them bit for bit."""
+    from ray_tpu_torch.models import training
+    from ray_tpu_torch.parallel import (DEFAULT_RULES, MeshSpec, build_mesh,
+                                        gather_params, shard_params)
+    from ray_tpu_torch.parallel.sharding import _axes
+
+    mesh = build_mesh(MeshSpec(**spec_kw), device_type="cpu")
+    data = np.load(inputs_path)
+    full_p = {n: torch.tensor(data[f"p/{n}"]) for n in logical}
+    full_g = {n: torch.tensor(data[f"g/{n}"]) for n in logical}
+    params = {n: t.clone() for n, t in
+              shard_params(full_p, logical, mesh).items()}
+    grads = shard_params(full_g, logical, mesh)
+    shard_axes = {n: tuple(a for ax in axes for a in _axes(
+        DEFAULT_RULES.mesh_axes(ax)) if mesh.shape[a] > 1)
+        for n, axes in logical.items()}
+    norm_sums = training.norm_sums_for(mesh, shard_axes)
+    opt = training.make_optimizer(**opt_kw)
+    state = opt.init(params)
+    norms = [float(opt.update_(params, [g.clone() for g in grads.values()],
+                               state, norm_sums)) for _ in range(3)]
+    # whole tensors, squares "summed" over groups of one rank
+    whole = {n: t.clone() for n, t in full_p.items()}
+    plain = {n: t.clone() for n, t in full_p.items()}
+    s_whole, s_plain = opt.init(whole), opt.init(plain)
+    ones = [(mesh.group("pp"), list(full_p)), (mesh.group("ep"),
+                                               list(full_p)[:2])]
+    same = True
+    for _ in range(3):
+        n1 = opt.update_(whole, [g.clone() for g in full_g.values()],
+                         s_whole, ones)
+        n2 = opt.update_(plain, [g.clone() for g in full_g.values()],
+                         s_plain)
+        same = same and torch.equal(n1, n2)
+    same = same and all(torch.equal(whole[n], plain[n]) for n in whole)
+    out = {f"param/{n}": t.numpy() for n, t in
+           gather_params(params, logical, mesh).items()}
+    out.update(norms=np.array(norms), bit_identical=np.array(same))
+    return out
