@@ -57,11 +57,25 @@ Phases, each fatal on failure (non-zero exit, no result line):
    tokens; the same checks and launches as phase 5, the path's own calls
    counted exactly (FSDP2 holds every parameter as a DTensor), and its
    first loss and grad norm against phase 5's (FSDP_LOSS_RTOL,
-   FSDP_GRAD_NORM_RTOL).
+   FSDP_GRAD_NORM_RTOL);
+10. llama_1b with 4 experts (phase 6's model, batch, weights and tokens)
+    through the process-mesh path on the same one-rank NCCL group
+    (`MeshSpec(dp=1, fsdp=1, ep=1, tp=1)`): the routing gather over the
+    batch group, the batch-group sum of the expert buffers, the ep and tp
+    pairs of the expert FFN, FSDP2 over the experts and the clip's sums
+    over ep; every parameter a DTensor, each of those calls its exact count
+    a step, the launches equal to phase 6's, and the first loss, load-balance
+    loss and grad norm against phase 6's (FSDP_LOSS_RTOL,
+    FSDP_GRAD_NORM_RTOL);
+11. llama_1b (phase 5's model, batch, weights and tokens) through the GPipe
+    schedule on `loopback_mesh(MeshSpec(pp=4))`: 4 stages of 4 layers, 4
+    microbatches of 4 rows, the flash kernels in every stage (2·L·M forward,
+    L·M dQ and L·M dK/dV launches a step), the first loss and grad norm
+    against phase 5's (LONG_LOSS_RTOL, LONG_GRAD_NORM_RTOL).
 
 ``--profile PATH`` profiles two more steps of each train path and writes
 one table per path (PATH with the path's name before its suffix);
-``--skip-main`` skips the train paths, phases 4-6, 8 and 9. Prints the
+``--skip-main`` skips the train paths, phases 4-6 and 8-11. Prints the
 kernels as one JSON line, then the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when
 CUDA is missing or the package is not beside this script.
@@ -70,6 +84,7 @@ CUDA is missing or the package is not beside this script.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -737,13 +752,13 @@ def moe_active_flops(cfg, n_tokens):
 
 
 def train_path(torch, A, models, smi_name, name, cfg, batches, warmup=2,
-               steps=5, profile_path=None, mesh=None):
+               steps=5, profile_path=None, mesh=None, calls=None):
     """Train steps of `cfg` at seq cfg.max_seq_len through GPT ->
     init_train_state -> make_train_step (on `mesh` when given) on tokens
     from a seeded numpy generator: the batch from `batches` (pick_batch
     when there are several), then `warmup` + `steps` steps with the launch
-    counts set to 0 just before and read just after. Returns (counts,
-    result)."""
+    counts (and the call counts of `calls`, a `counting` dict) set to 0
+    just before and read just after. Returns (counts, result)."""
     from ray_tpu_torch.models.moe import capacity
     from ray_tpu_torch.models.training import flops_per_token
 
@@ -776,6 +791,8 @@ def train_path(torch, A, models, smi_name, name, cfg, batches, warmup=2,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     A.reset_launch_counts()
+    for k in calls or ():
+        calls[k] = 0
     metrics = []
     for _ in range(warmup):
         state, m = step(state, batch_dict)
@@ -788,6 +805,8 @@ def train_path(torch, A, models, smi_name, name, cfg, batches, warmup=2,
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = dict(A.launches)
+    if calls is not None:
+        result["calls"] = dict(calls)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     losses = [float(m["loss"]) for m in metrics]
     grad_norms = [float(m["grad_norm"]) for m in metrics]
@@ -815,10 +834,13 @@ def train_path(torch, A, models, smi_name, name, cfg, batches, warmup=2,
         raise SmokeFailure(f"{name}: first loss {losses[0]} far from "
                            f"ln(V)={math.log(cfg.vocab_size):.3f}")
     # per layer and step: the forward twice (forward and remat recompute),
-    # dQ and dK/dV once; through a causal ring, sp(sp+1)/2 partials each
+    # dQ and dK/dV once; through a causal ring, sp(sp+1)/2 partials each;
+    # through a pipeline, once per microbatch
     fwd = 2 if cfg.remat else 1
     sp = mesh.shape["sp"] if mesh is not None else 1
-    calls = cfg.n_layers * sp * (sp + 1) // 2
+    pp = mesh.shape["pp"] if mesh is not None else 1
+    micro = (cfg.pp_microbatches or pp) if pp > 1 else 1
+    calls = cfg.n_layers * sp * (sp + 1) // 2 * micro
     expected = {"flash_fwd": fwd * calls, "flash_bwd_dq": calls,
                 "flash_bwd_dkv": calls}
     wrong = {k: v for k, v in counts.items() if v != expected[k] * n_steps}
@@ -889,15 +911,17 @@ def long_context(torch, A, models, smi, cfg, names, by_path, profile):
     return out
 
 
-def counting(module, names):
+def counting(module, names, counts=None, prefix=""):
     """Wrap each function `names` of `module` so that its calls are counted
-    (in the returned dict); `restore()` puts the originals back."""
-    counts = {n: 0 for n in names}
+    (in the returned dict, or in `counts`, under `prefix` + name);
+    `restore()` puts the originals back."""
+    counts = {} if counts is None else counts
+    counts.update({prefix + n: 0 for n in names})
     real = {n: getattr(module, n) for n in names}
 
     def wrap(n):
         def counted(*args, **kw):
-            counts[n] += 1
+            counts[prefix + n] += 1
             return real[n](*args, **kw)
         return counted
 
@@ -910,21 +934,33 @@ def counting(module, names):
     return counts, restore
 
 
-def fsdp_tp_path(torch, A, models, smi, cfg, base, name, by_path, profile):
-    """Phase 9: `cfg` on a process mesh of one rank over NCCL, through the
-    same FSDP2 wrapping, tp autograd functions, vocab-parallel loss and
-    global-norm clip as a mesh of many ranks, at phase 5's batch (`base`)
-    on the same weights and tokens. Fails unless every parameter is an
-    FSDP2 DTensor, each tp function and the clip's sums ran their exact
-    count a step, and the first loss and grad norm match phase 5's."""
+@contextlib.contextmanager
+def one_rank_nccl(torch):
+    """The default process group: NCCL over this one card, an in-memory
+    store (no network); destroyed on the way out."""
     import torch.distributed as dist
-    from ray_tpu_torch.models import gpt as G
-    from ray_tpu_torch.models import training as T
-    from ray_tpu_torch.parallel import MeshSpec, build_mesh
 
     torch.cuda.set_device(0)
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
                             world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def fsdp_tp_path(torch, A, models, smi, cfg, base, name, by_path, profile):
+    """Phase 9: `cfg` on a process mesh of one rank over NCCL (the caller's
+    default group), through the same FSDP2 wrapping, tp autograd functions,
+    vocab-parallel loss and global-norm clip as a mesh of many ranks, at
+    phase 5's batch (`base`) on the same weights and tokens. Fails unless
+    every parameter is an FSDP2 DTensor, each tp function and the clip's
+    sums ran their exact count a step, and the first loss and grad norm
+    match phase 5's."""
+    from ray_tpu_torch.models import gpt as G
+    from ray_tpu_torch.models import training as T
+    from ray_tpu_torch.parallel import MeshSpec, build_mesh
+
     tp_calls, restore_tp = counting(
         G, ("copy_to_tp", "reduce_from_tp", "gather_from_tp"))
     clip_calls, restore_clip = counting(T, ("_global_norms",))
@@ -939,7 +975,6 @@ def fsdp_tp_path(torch, A, models, smi, cfg, base, name, by_path, profile):
     finally:
         restore_tp()
         restore_clip()
-        dist.destroy_process_group()
     # per step: into each block half's column-parallel products and the head
     # (2L + 1), out of each row-parallel product and the embedding (2L + 1);
     # the recompute repeats the blocks' inputs (2L) and the attention
@@ -979,6 +1014,127 @@ def fsdp_tp_path(torch, A, models, smi, cfg, base, name, by_path, profile):
     if got != want:
         raise SmokeFailure(f"{name}: calls per step {got}, expected {want}")
     if not (loss_rel <= FSDP_LOSS_RTOL and norm_rel <= FSDP_GRAD_NORM_RTOL):
+        raise SmokeFailure(f"{name}: the first step disagrees with phase 5's")
+    return out
+
+
+def moe_mesh_path(torch, A, models, smi, cfg, base, name, by_path, profile):
+    """Phase 10: the MoE `cfg` on a process mesh of one rank over NCCL (the
+    caller's default group) at phase 6's batch (`base`), on the same
+    weights and tokens: the routing gather, the batch-group sum of the
+    expert buffers, the ep and tp pairs, FSDP2 over the experts and the
+    clip's sums over ep, each a copy at one rank. Fails unless every
+    parameter is an FSDP2 DTensor, each of those calls ran its exact count
+    a step, the launches equal phase 6's, and the first loss, load-balance
+    loss and grad norm match phase 6's."""
+    from ray_tpu_torch.models import gpt as G
+    from ray_tpu_torch.models import moe as MOE
+    from ray_tpu_torch.models import training as T
+    from ray_tpu_torch.parallel import MeshSpec, build_mesh
+
+    calls, restores = {}, []
+    for mod, prefix, fns in (
+            (G, "gpt.", ("copy_to_tp", "reduce_from_tp", "gather_from_tp")),
+            (MOE, "moe.", ("copy_to_tp", "reduce_from_tp", "copy_to_ep",
+                           "reduce_from_ep", "sum_over_batch",
+                           "gather_over_batch")),
+            (T, "", ("_global_norms",))):
+        restores.append(counting(mod, fns, calls, prefix)[1])
+    try:
+        t0 = time.perf_counter()
+        mesh = build_mesh(MeshSpec(dp=1, fsdp=1, ep=1, tp=1),
+                          device_type="cuda")
+        log(f"{name}: mesh over the one-rank NCCL group in "
+            f"{time.perf_counter() - t0:.1f}s")
+        by_path[name], out = train_path(
+            torch, A, models, smi, name, cfg, (base["batch"],),
+            profile_path=profile, mesh=mesh, calls=calls)
+    finally:
+        for restore in restores:
+            restore()
+    # per step, the forward and the block checkpoint's recompute (passes):
+    # gpt's tp pair in each attention half (L a pass) and the head and the
+    # embedding (1); moe's tp pair, ep output sum, batch-group sum and
+    # routing gather once a layer a pass, copy_to_ep twice (the tokens and
+    # the gates); one loss gather, one clip
+    L = cfg.n_layers
+    passes = 2 if cfg.remat else 1
+    want = {"gpt.copy_to_tp": L * passes + 1,
+            "gpt.reduce_from_tp": L * passes + 1, "gpt.gather_from_tp": 1,
+            "moe.copy_to_tp": L * passes, "moe.reduce_from_tp": L * passes,
+            "moe.copy_to_ep": 2 * L * passes,
+            "moe.reduce_from_ep": L * passes,
+            "moe.sum_over_batch": L * passes,
+            "moe.gather_over_batch": L * passes, "_global_norms": 1}
+    n_steps = len(out["losses"])
+    got = {k: v / n_steps for k, v in out["calls"].items()}
+    keys = ("losses", "moe_aux_loss", "grad_norms")
+    gaps = {k: abs(out[k][0] - base[k][0]) / abs(base[k][0]) for k in keys}
+    equal = {k: out[k] == base[k] for k in keys}
+    out.update(calls_per_step=got, first_gaps=gaps, equal_to_phase6=equal)
+    log(f"{name}: FSDP2 DTensor parameters {out['dtensor_params']}; calls "
+        f"per step {got} (expected {want}); launches {by_path[name]} "
+        f"(phase 6: {by_path['llama_1b_moe']})")
+    log(f"{name}: beside llama_1b MoE (phase 6), batch {base['batch']}: step "
+        f"{out['step_ms']:.1f} ms ({base['step_ms']:.1f}), "
+        f"{out['tokens_per_s']:.0f} tokens/s ({base['tokens_per_s']:.0f}), "
+        f"MFU {out['mfu']:.4f} ({base['mfu']:.4f}), active-work MFU "
+        f"{out['mfu_active']:.4f} ({base['mfu_active']:.4f}), peak "
+        f"{out['peak_mem_gib']:.2f} GiB ({base['peak_mem_gib']:.2f}); first "
+        f"loss {out['losses'][0]:.6f} ({base['losses'][0]:.6f}), aux "
+        f"{out['moe_aux_loss'][0]:.7f} ({base['moe_aux_loss'][0]:.7f}), grad "
+        f"norm {out['grad_norms'][0]:.6f} ({base['grad_norms'][0]:.6f}); "
+        f"relative gaps {gaps} (loss and aux <= {FSDP_LOSS_RTOL:.0e}, grad "
+        f"norm <= {FSDP_GRAD_NORM_RTOL:.0e}); all 7 equal to phase 6's bit "
+        f"for bit: {equal}")
+    dt, n_params = out["dtensor_params"]
+    if dt != n_params or dt == 0:
+        raise SmokeFailure(f"{name}: {dt} of {n_params} parameters are "
+                           "FSDP2 DTensors")
+    if got != want:
+        raise SmokeFailure(f"{name}: calls per step {got}, expected {want}")
+    if by_path[name] != by_path["llama_1b_moe"]:
+        raise SmokeFailure(f"{name}: launches {by_path[name]}, phase 6 "
+                           f"{by_path['llama_1b_moe']}")
+    if not (gaps["losses"] <= FSDP_LOSS_RTOL
+            and gaps["moe_aux_loss"] <= FSDP_LOSS_RTOL
+            and gaps["grad_norms"] <= FSDP_GRAD_NORM_RTOL):
+        raise SmokeFailure(f"{name}: the first step disagrees with phase 6's")
+    return out
+
+
+def pipeline_path(torch, A, models, smi, cfg, base, name, by_path, profile):
+    """Phase 11: `cfg` (with pp_microbatches) through the GPipe schedule on
+    a loopback mesh of 4 stages, every stage in this process, at phase 5's
+    batch (`base`) on the same weights and tokens; train_path holds the
+    launches to 2·L·M forward, L·M dQ and L·M dK/dV a step. Fails unless
+    the first loss and grad norm match phase 5's (the products run on
+    microbatches of batch / M rows, where cuBLAS may sum in another
+    order)."""
+    from ray_tpu_torch.parallel import MeshSpec, loopback_mesh
+
+    P = 4
+    M = cfg.pp_microbatches or P
+    by_path[name], out = train_path(
+        torch, A, models, smi, name, cfg, (base["batch"],),
+        profile_path=profile, mesh=loopback_mesh(MeshSpec(pp=P)))
+    loss_rel = abs(out["losses"][0] - base["losses"][0]) / abs(
+        base["losses"][0])
+    norm_rel = abs(out["grad_norms"][0] - base["grad_norms"][0]) / abs(
+        base["grad_norms"][0])
+    out.update(first_loss_rel=loss_rel, first_grad_norm_rel=norm_rel)
+    log(f"{name}: beside llama_1b (phase 5), batch {base['batch']} as {M} "
+        f"microbatches through {P} stages in one process (the bubble (M + P "
+        f"- 1) / M = {(M + P - 1) / M:.2f} waits for several cards): step "
+        f"{out['step_ms']:.1f} ms ({base['step_ms']:.1f}), "
+        f"{out['tokens_per_s']:.0f} tokens/s ({base['tokens_per_s']:.0f}), "
+        f"MFU {out['mfu']:.4f} ({base['mfu']:.4f}), peak "
+        f"{out['peak_mem_gib']:.2f} GiB ({base['peak_mem_gib']:.2f}); first "
+        f"loss {out['losses'][0]:.6f} ({base['losses'][0]:.6f}), relative "
+        f"gap {loss_rel:.3e} (<= {LONG_LOSS_RTOL:.0e}); first grad norm "
+        f"{out['grad_norms'][0]:.6f} ({base['grad_norms'][0]:.6f}), "
+        f"relative gap {norm_rel:.3e} (<= {LONG_GRAD_NORM_RTOL:.0e})")
+    if not (loss_rel <= LONG_LOSS_RTOL and norm_rel <= LONG_GRAD_NORM_RTOL):
         raise SmokeFailure(f"{name}: the first step disagrees with phase 5's")
     return out
 
@@ -1103,14 +1259,31 @@ def run(args) -> int:
                                             args.profile)
 
     # phase 9: llama_1b through the process-mesh path (FSDP2, tp, the
-    # global-norm clip) on a one-rank NCCL group, beside phase 5
+    # global-norm clip) on a one-rank NCCL group, beside phase 5; phase 10:
+    # the MoE model through it, beside phase 6; phase 11: llama_1b through
+    # the GPipe schedule over 4 loopback stages, beside phase 5
     mesh_path = "llama_1b_fsdp_tp_mesh1"
+    moe_path = "llama_1b_moe_mesh1"
+    pp_path = "llama_1b_pp4_loopback"
     if args.skip_main:
-        by_path[mesh_path] = {k: None for k in A.launches}
+        by_path.update({n: {k: None for k in A.launches}
+                        for n in (mesh_path, moe_path, pp_path)})
     else:
-        main[mesh_path] = fsdp_tp_path(
-            torch, A, models, smi, paths["llama_1b"][0], main["llama_1b"],
-            mesh_path, by_path, args.profile)
+        with one_rank_nccl(torch):
+            main[mesh_path] = fsdp_tp_path(
+                torch, A, models, smi, paths["llama_1b"][0],
+                main["llama_1b"], mesh_path, by_path, args.profile)
+            gc.collect()
+            torch.cuda.empty_cache()
+            main[moe_path] = moe_mesh_path(
+                torch, A, models, smi, paths["llama_1b_moe"][0],
+                main["llama_1b_moe"], moe_path, by_path, args.profile)
+            gc.collect()
+            torch.cuda.empty_cache()
+        main[pp_path] = pipeline_path(
+            torch, A, models, smi,
+            models.llama_1b(remat_policy="dots", pp_microbatches=4),
+            main["llama_1b"], pp_path, by_path, args.profile)
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -1149,7 +1322,7 @@ def main() -> int:
                     "write torch.profiler's table to PATH with the path's "
                     "name before the suffix")
     ap.add_argument("--skip-main", action="store_true",
-                    help="skip the train paths, phases 4-6, 8 and 9 "
+                    help="skip the train paths, phases 4-6 and 8-11 "
                     "(debugging)")
     args = ap.parse_args()
     try:

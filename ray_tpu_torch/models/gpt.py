@@ -13,17 +13,24 @@ layout of one slice of the stacked tree (``wq [d, h, hd]``,
 (`ray_tpu_torch.models.convert.params_from_jax`).
 
 Parallelism comes in through a `ray_tpu_torch.parallel.Mesh` and its
-rules, as in JAX. On a process mesh (`build_mesh`) each rank holds its tp
-slice of every parameter (heads, kv_heads, mlp and vocab split, Megatron's
-column- and row-parallel layout with one all-reduce over tp after each
-block half, a vocab-parallel embedding, head and cross entropy), and FSDP2
-shards that slice over (dp, fsdp): each block, then the root module. A rank
-computes its rows and sequence columns; attention runs the flash kernels
-on the rank's heads, or `ring_attention` over sp on them. On a loopback
-mesh one process holds every sp shard: it runs the whole sequence and
-splits only attention into the ring's shards. The mixture-of-experts FFN
-(``n_experts > 0``, `moe.py`) runs on one rank only (its capacity and slot
-order are global in JAX); ep and pp are not ported, and each raises here.
+rules, as in JAX, on all six axes. On a process mesh (`build_mesh`) each
+rank holds its tp slice of every parameter (heads, kv_heads, mlp and vocab
+split, Megatron's column- and row-parallel layout with one all-reduce over
+tp after each block half, a vocab-parallel embedding, head and cross
+entropy) and its ep slice of the experts, and FSDP2 shards that over (dp,
+fsdp): each block, then the root module. A rank computes its rows and
+sequence columns; attention runs the flash kernels on the rank's heads, or
+`ring_attention` over sp on them. The mixture-of-experts FFN (``n_experts
+> 0``, `moe.py`) routes over the global tokens of the batch group and runs
+this rank's experts. With pp > 1 a rank holds the blocks of its stage (the
+parameters outside the blocks on every stage, as JAX replicates them over
+pp) and the GPipe schedule of `ray_tpu_torch.parallel.pipeline` carries the
+microbatches through the stages; every stage runs the flash kernels, where
+JAX's pipeline falls back to its reference attention. On a loopback mesh
+one process holds every sp shard (it runs the whole sequence and splits
+only attention into the ring's shards) or every stage. JAX's refusals
+stand: n_layers must divide into the stages, and experts with pp > 1
+raise.
 """
 
 from __future__ import annotations
@@ -41,13 +48,14 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..ops.attention import dot_product_attention
 from ..ops.ring_attention import ring_attention, ring_transport
-from ..parallel.mesh import AXIS_FSDP, AXIS_TP, Mesh
-from ..parallel.sharding import (DEFAULT_RULES, ShardingRules,
+from ..parallel import pipeline
+from ..parallel.mesh import AXIS_EP, AXIS_FSDP, AXIS_PP, AXIS_TP, Mesh
+from ..parallel.sharding import (DEFAULT_RULES, ShardingRules, _axes,
                                  logical_sharding, shard_batch,
                                  with_logical_constraint)
 from ..parallel.tensor_parallel import (copy_to_tp, gather_from_tp,
                                         reduce_from_tp)
-from .moe import moe_ffn
+from .moe import MoEMesh, moe_ffn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,7 +73,7 @@ class GPTConfig:
     positions: str = "learned"        # "learned" | "rope"
     rope_theta: float = 10000.0
     tie_embeddings: bool = True
-    # pipeline: not ported yet (must be 0)
+    # GPipe microbatches on a mesh with pp > 1 (0: one per stage)
     pp_microbatches: int = 0
     # mixture-of-experts FFN (moe.py) in every block when n_experts > 0
     n_experts: int = 0
@@ -184,23 +192,28 @@ _REMAT_CONTEXTS = {
 }
 
 
-def _check_mesh(c: GPTConfig, mesh: Mesh) -> None:
-    """Refuse what the port leaves out."""
-    shape = mesh.shape
-    for axis in ("ep", "pp"):
-        if shape[axis] > 1:
+def _pp_stages(mesh: Optional[Mesh], rules: ShardingRules) -> int:
+    """Pipeline stages: the size of the mesh axis "stage" maps to."""
+    if mesh is None:
+        return 1
+    ax = rules.mesh_axes("stage")
+    if isinstance(ax, str) and ax in mesh.shape:
+        return mesh.shape[ax]
+    return 1
+
+
+def check_mesh(c: GPTConfig, mesh: Optional[Mesh],
+               rules: ShardingRules = DEFAULT_RULES) -> None:
+    """JAX's refusals (``ray_tpu/models/gpt.py``, ``GPT.__init__``)."""
+    P = _pp_stages(mesh, rules)
+    if P > 1:
+        if c.n_layers % P:
+            raise ValueError(f"n_layers={c.n_layers} must divide into "
+                             f"pp={P} stages")
+        if c.n_experts > 0:
             raise NotImplementedError(
-                f"mesh axis {axis}={shape[axis]} is not ported yet (queue 1 "
-                "of ROADMAP.md: ep, pp and MoE across ranks)")
-    if c.n_experts > 0 and math.prod(
-            shape[a] for a in ("dp", "fsdp", "sp", "tp")) > 1:
-        # JAX routes over the global token set: capacity from the global
-        # T, slot priority in global token order, the load-balance loss a
-        # mean over all tokens; a per-rank moe_ffn would differ, and its
-        # expert FFN is not split over tp
-        raise NotImplementedError(
-            "the MoE FFN across ranks is not ported yet (queue 1 of "
-            "ROADMAP.md: ep, pp and MoE across ranks)")
+                "EP+PP combined (MoE aux-loss masking across pipeline "
+                "bubbles) is not supported yet")
 
 
 # --- model -----------------------------------------------------------------
@@ -271,18 +284,20 @@ class GPT(nn.Module):
                  rules: Optional[ShardingRules] = None):
         super().__init__()
         c = config
-        if c.pp_microbatches:
-            # with experts too: JAX refuses EP+PP combined as well
-            raise NotImplementedError("pipeline parallelism is not ported yet")
-        if mesh is not None:
-            _check_mesh(c, mesh)
         self.mesh = mesh
         self.rules = rules if rules is not None else DEFAULT_RULES
+        check_mesh(c, mesh, self.rules)
         # the loss and the gradients sum over ranks on a process mesh (of
         # any size, one program as GSPMD runs one: a mesh of one rank takes
         # the same collectives); a loopback mesh holds every shard here
         self.sums_over_ranks = mesh is not None and not mesh.loopback
         self._tp = mesh.group(AXIS_TP) if self.sums_over_ranks else None
+        self._moe_mesh = (MoEMesh.from_mesh(mesh) if self.sums_over_ranks
+                          and c.n_experts > 0 else None)
+        self._pipe = None
+        if self.pp_stages > 1:
+            self._pipe = pipeline.pipe_transport(mesh.group(
+                self.rules.mesh_axes("stage")))
         self._ring = None
         if self._sp_size() > 1:
             axis = self.rules.mesh_axes("act_seq")
@@ -305,8 +320,9 @@ class GPT(nn.Module):
             return _normal(gen, device, c.param_dtype, 0.02, *shape)
 
         self.tok_embed = normal(c.vocab_size, d)
-        self.blocks = nn.ModuleList(Block(c, device, gen)
-                                    for _ in range(c.n_layers))
+        # keyed by layer: a pipeline stage keeps its blocks' global names
+        self.blocks = nn.ModuleDict({str(i): Block(c, device, gen)
+                                     for i in range(c.n_layers)})
         self.norm_f = nn.Parameter(torch.ones(d, device=device,
                                               dtype=c.param_dtype))
         if c.positions == "learned":
@@ -319,14 +335,29 @@ class GPT(nn.Module):
         if self.sums_over_ranks:
             self._shard()
 
+    @property
+    def pp_stages(self) -> int:
+        return _pp_stages(self.mesh, self.rules)
+
+    def _stage_layers(self, stage: int) -> range:
+        per = self.config.n_layers // self.pp_stages
+        return range(stage * per, (stage + 1) * per)
+
     def _shard(self) -> None:
-        """This rank's layout on a process mesh: every parameter cut to its
-        tp slice by the rules, then FSDP2 over the (dp, fsdp) mesh, each
-        block and then the root; the gradients are summed, not averaged
-        (the loss is already each rank's share of the global one)."""
+        """This rank's layout on a process mesh: the blocks of its pipeline
+        stage, every parameter cut to its tp and ep slice by the rules, then
+        FSDP2 over the (dp, fsdp) mesh, each block and then the root; the
+        gradients are summed, not averaged (the loss is already each rank's
+        share of the global one)."""
         from torch.distributed.fsdp import fully_shard
 
-        tp_rules = self.rules.only(AXIS_TP)
+        if self._pipe is not None:
+            mine = self._stage_layers(self.mesh.coords[
+                self.rules.mesh_axes("stage")])
+            for key in list(self.blocks):
+                if int(key) not in mine:
+                    del self.blocks[key]
+        tp_rules = self.rules.only(AXIS_TP, AXIS_EP)
         axes = self.param_logical_axes()
         for name, p in list(self.named_parameters()):
             owner, _, attr = name.rpartition(".")
@@ -336,7 +367,7 @@ class GPT(nn.Module):
                     nn.Parameter(local.clone()))
         self._vocab_lo = logical_sharding(self.mesh, tp_rules, ("vocab",),
                                           (self.config.vocab_size,))[0].start
-        for module in [*self.blocks, self]:
+        for module in [*self.blocks.values(), self]:
             fully_shard(module, mesh=self.mesh.data_mesh)
             module.set_gradient_divide_factor(1.0)
             module.set_force_sum_reduction_for_comms(True)
@@ -367,7 +398,8 @@ class GPT(nn.Module):
         if c.norm == "layernorm":
             block["bias1"] = (None,)
             block["bias2"] = (None,)
-        axes = {"tok_embed": ("vocab", "embed"), "norm_f": (None,)}
+        axes: Dict[str, Tuple[Optional[str], ...]] = {
+            "tok_embed": ("vocab", "embed"), "norm_f": (None,)}
         if c.positions == "learned":
             axes["pos_embed"] = (None, "embed")
         if c.norm == "layernorm":
@@ -378,16 +410,38 @@ class GPT(nn.Module):
             axes.update({f"blocks.{i}.{k}": v for k, v in block.items()})
         return axes
 
+    def own_logical_axes(self) -> Dict[str, Tuple[Optional[str], ...]]:
+        """`param_logical_axes` of the parameters this rank holds (on a
+        pipeline stage: its blocks and the parameters outside them)."""
+        own = {n for n, _ in self.named_parameters()}
+        return {n: v for n, v in self.param_logical_axes().items()
+                if n in own}
+
     def param_shard_axes(self) -> Dict[str, Tuple[str, ...]]:
         """Parameter name -> the mesh axes its local shard on this rank is
-        cut over (fsdp by FSDP2, tp by the rules): the groups over which
-        sums of a gradient's squares run. Empty off a process mesh."""
+        cut over (fsdp by FSDP2, tp and ep by the rules, pp for the blocks
+        of a pipeline stage): the groups over which sums of a gradient's
+        squares run. Empty off a process mesh."""
         if not self.sums_over_ranks:
             return {n: () for n, _ in self.named_parameters()}
-        tp_rules = self.rules.only(AXIS_TP)
-        return {n: (AXIS_FSDP,) + ((AXIS_TP,) if any(
-            tp_rules.mesh_axes(a) for a in ax) else ())
-            for n, ax in self.param_logical_axes().items()}
+        rules = self.rules.only(AXIS_TP, AXIS_EP)
+        out = {}
+        for n, ax in self.own_logical_axes().items():
+            cut = {a for entry in ax for a in _axes(rules.mesh_axes(entry))}
+            out[n] = ((AXIS_FSDP,)
+                      + tuple(a for a in (AXIS_EP, AXIS_TP) if a in cut)
+                      + ((AXIS_PP,) if self._pipe is not None
+                         and n.startswith("blocks.") else ()))
+        return out
+
+    def pp_replicated(self) -> list:
+        """Names of the parameters every pipeline stage holds (those outside
+        the blocks), whose gradients the step sums over pp; empty unless
+        this is a process mesh with pp > 1."""
+        if self._pipe is None or not self.sums_over_ranks:
+            return []
+        return [n for n, _ in self.named_parameters()
+                if not n.startswith("blocks.")]
 
     @property
     def device(self) -> torch.device:
@@ -473,7 +527,7 @@ class GPT(nn.Module):
             down, moe = moe_ffn(h, blk.router, blk.w_up, blk.w_gate,
                                 blk.w_down, top_k=c.moe_top_k,
                                 capacity_factor=c.moe_capacity_factor,
-                                dtype=dt)
+                                dtype=dt, mesh=self._moe_mesh)
             return x + down, moe["moe_aux_loss"]
         h = self._tp_in(h)
         up = self._proj(h, blk.w_up.to(dt))
@@ -525,40 +579,64 @@ class GPT(nn.Module):
         x = F.embedding(torch.where(mine, local, 0), tbl)
         return reduce_from_tp(torch.where(mine[..., None], x, 0), self._tp)
 
-    # -- forward -----------------------------------------------------------
-
-    def forward(self, tokens: torch.Tensor,
-                positions: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """tokens [B, S] int -> (logits [B, S, V] f32, {"moe_aux_loss": the
-        mean over layers of the MoE load-balance loss, 0 when dense}).
-
-        On a process mesh with sp > 1, `tokens` are this rank's sequence
-        shard, and `positions` default to the shard's global ones; under tp
-        the logits are this rank's vocab columns."""
-        c = self.config
-        if positions is None:
-            offset = 0
-            if self._ring is not None and not self.mesh.loopback:
-                offset = self.mesh.coords[self.rules.mesh_axes("act_seq")] \
-                    * tokens.shape[1]
-            positions = torch.arange(offset, offset + tokens.shape[1],
-                                     device=tokens.device).expand(tokens.shape)
+    def _embed_positions(self, tokens, positions):
         x = self._embed(tokens)
-        if c.positions == "learned":
-            x = x + F.embedding(positions, self.pos_embed.to(c.dtype))
-        aux = []
-        for blk in self.blocks:
-            x, layer_aux = blk(self._run_block, x, positions)
-            aux.append(layer_aux)
+        if self.config.positions == "learned":
+            x = x + F.embedding(positions, self.pos_embed.to(self.config.dtype))
+        return x
+
+    def _head(self, x):
+        """The final norm and the head: f32 logits (under tp this rank's
+        vocab columns), a new tensor (FSDP2 warns of a view as an output)."""
+        c = self.config
         x = self._tp_in(self._norm(x, self.norm_f,
                                    getattr(self, "bias_f", None)))
         head = (self.tok_embed.t() if c.tie_embeddings else self.lm_head)
-        logits = self._proj(x, head.to(c.dtype))
+        return self._proj(x, head.to(c.dtype)).to(torch.float32, copy=True)
+
+    def _positions(self, tokens, positions):
+        """Positions default to the rank's global ones (its sequence shard's
+        offset under a process-mesh ring)."""
+        if positions is not None:
+            return positions
+        offset = 0
+        if self._ring is not None and not self.mesh.loopback:
+            offset = self.mesh.coords[self.rules.mesh_axes("act_seq")] \
+                * tokens.shape[1]
+        return torch.arange(offset, offset + tokens.shape[1],
+                            device=tokens.device).expand(tokens.shape)
+
+    # -- forward -----------------------------------------------------------
+
+    def forward(self, tokens: torch.Tensor,
+                positions: Optional[torch.Tensor] = None, *,
+                loss_inputs=None):
+        """tokens [B, S] int -> (logits [B, S, V] f32, {"moe_aux_loss": the
+        mean over layers of the MoE load-balance loss, 0 when dense}).
+
+        On a process mesh, `tokens` are this rank's rows and sequence
+        columns and `positions` default to their global ones; under tp the
+        logits are this rank's vocab columns; with experts the load-balance
+        loss is this rank's share of the global one. With pp > 1 the GPipe
+        schedule runs the stages, and every pp rank gets the last stage's
+        logits (no gradient flows across stages this way:
+        `pipeline_loss(batch, backward=True)` trains). `loss_inputs` =
+        (targets, loss_mask, total) is `pipeline_loss`'s: the last stage
+        then keeps each microbatch's loss share, and the pipeline's run is
+        returned."""
+        c = self.config
+        positions = self._positions(tokens, positions)
+        if self.pp_stages > 1:
+            return self._pipeline(tokens, positions, loss_inputs)
+        x = self._embed_positions(tokens, positions)
+        aux = []
+        for blk in self.blocks.values():
+            x, layer_aux = blk(self._run_block, x, positions)
+            aux.append(layer_aux)
+        logits = self._head(x)
         aux_loss = (torch.stack(aux).mean() if c.n_experts > 0 else
                     torch.zeros((), device=logits.device))
-        # a new tensor also in f32 (FSDP2 warns of a view as the output)
-        return logits.to(torch.float32, copy=True), {"moe_aux_loss": aux_loss}
+        return logits, {"moe_aux_loss": aux_loss}
 
     def forward_with_aux(self, tokens, positions=None):
         """`forward`, under JAX's name; called through the module, so that
@@ -568,6 +646,62 @@ class GPT(nn.Module):
     def apply(self, tokens, positions=None) -> torch.Tensor:
         """tokens: [B, S] → logits [B, S, V] (f32)."""
         return self(tokens, positions)[0]
+
+    def _n_micro(self, batch: int) -> int:
+        m = self.config.pp_microbatches or self.pp_stages
+        if batch % m:
+            raise ValueError(f"batch {batch} must divide into {m} "
+                             "microbatches")
+        return m
+
+    def _pipeline(self, tokens, positions, loss_inputs):
+        """GPipe over the stages (`ray_tpu_torch.parallel.pipeline`): this
+        rank's rows split into M microbatches (JAX splits the global rows
+        first, so a dp rank may hold other rows of a microbatch; the loss is
+        a global sum either way)."""
+        c = self.config
+        M = self._n_micro(tokens.shape[0])
+        P = self.pp_stages
+        toks, pos = tokens.chunk(M), positions.chunk(M)
+        nll = {}
+
+        def first(m):
+            return self._embed_positions(toks[m], pos[m])
+
+        def stage(s, x, m):
+            for i in self._stage_layers(s):
+                x, _ = self.blocks[str(i)](self._run_block, x, pos[m])
+            return x
+
+        def last(y, m):
+            logits = self._head(y)
+            if loss_inputs is None:
+                return logits
+            targets, mask, total = loss_inputs
+            loss, nll[m] = self._loss_share(logits, targets.chunk(M)[m],
+                                            mask.chunk(M)[m], total)
+            return loss
+
+        like = ((tokens.shape[0] // M, tokens.shape[1], c.d_model), c.dtype,
+                tokens.device)
+        run = pipeline.forward(self._pipe, M, first, stage, last, like)
+        if loss_inputs is not None:
+            run["nll"] = [nll[m] for m in sorted(nll)]
+            run["like"] = like
+            return run
+        logits = None
+        if P - 1 in self._pipe.stages:
+            logits = torch.cat([run["outputs"][P - 1, m] for m in range(M)])
+        if self.sums_over_ranks:
+            import torch.distributed as dist
+
+            if logits is None:
+                v = (self.tok_embed.shape[0] if c.tie_embeddings
+                     else self.lm_head.shape[1])
+                logits = torch.empty((*tokens.shape, v), device=tokens.device)
+            dist.broadcast(logits, self._pipe.global_rank(P - 1),
+                           group=self._pipe.group)
+        return logits, {"moe_aux_loss": torch.zeros((), device=tokens.device)}
 
     def _lse_and_true_logit(self, logits, targets):
         """Per position, the log-sum-exp of the logits and the target's
@@ -585,6 +719,24 @@ class GPT(nn.Module):
         parts = gather_from_tp(torch.stack([lse, true_logit]), self._tp)
         return torch.logsumexp(parts[:, 0], dim=0), parts[:, 1].sum(0)
 
+    def _loss_share(self, logits, targets, mask, total):
+        """(this part's share of the cross entropy + z-loss, normalised by
+        the global `total`, and its summed nll, detached)."""
+        c = self.config
+        lse, true_logit = self._lse_and_true_logit(logits, targets)
+        nll_sum = ((lse - true_logit) * mask).sum()
+        loss = nll_sum / total
+        if c.z_loss:
+            loss = loss + c.z_loss * (lse ** 2 * mask).sum() / total
+        return loss, nll_sum.detach()
+
+    def _count(self, mask):
+        """The global mask count (over the batch group on a process mesh)."""
+        count = mask.sum()
+        if self.sums_over_ranks:
+            count = self._sum_over_batch(count.detach())
+        return count
+
     def loss(self, batch: Dict[str, torch.Tensor]
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Next-token cross entropy (+ z-loss) with an optional loss mask.
@@ -593,8 +745,13 @@ class GPT(nn.Module):
         [B, S]}. Targets are tokens shifted left; the final position is
         masked. On a process mesh this rank takes its part of the batch
         (`shard_batch`), the loss is its share of the global one, normalised
-        by the global mask count, and the metrics are global.
+        by the global mask count, and the metrics are global. With pp > 1
+        this is `pipeline_loss(batch)`: the forward alone, the loss the
+        global one, detached.
         """
+        if self.pp_stages > 1:
+            with torch.no_grad():
+                return self.pipeline_loss(batch)
         c = self.config
         global_shape = (*batch["tokens"].shape, c.vocab_size)
         batch = shard_batch(self.mesh, batch, self.rules)
@@ -604,35 +761,70 @@ class GPT(nn.Module):
         with_logical_constraint(logits, "act_batch", "act_seq", "act_vocab",
                                 global_shape=global_shape, rules=self.rules,
                                 mesh=self.mesh)
-        lse, true_logit = self._lse_and_true_logit(logits, targets)
-        nll = lse - true_logit
-        count = mask.sum()
-        if self.sums_over_ranks:
-            count = self._sum_over_batch(count.detach())
+        count = self._count(mask)
         total = count.clamp(min=1.0)
-        nll_sum = (nll * mask).sum()
-        loss = nll_sum / total
-        if c.z_loss:
-            loss = loss + c.z_loss * (lse ** 2 * mask).sum() / total
+        loss, nll_sum = self._loss_share(logits, targets, mask, total)
         metrics = {
             "loss": loss.detach(),
-            "ppl_log": (nll_sum / total).detach(),
+            "ppl_log": nll_sum / total,
             "tokens": count,
         }
-        if self.sums_over_ranks:
-            loss_g, ppl_g = self._sum_over_batch(torch.stack(
-                [metrics["loss"], metrics["ppl_log"]]))
-            metrics.update(loss=loss_g, ppl_log=ppl_g)
         if c.n_experts > 0:
             loss = loss + c.moe_aux_coeff * aux["moe_aux_loss"]
             metrics["moe_aux_loss"] = aux["moe_aux_loss"].detach()
-            metrics["loss"] = loss.detach()
+        if self.sums_over_ranks:
+            # one sum over the batch group: the loss shares, their nll, and
+            # with experts the load-balance loss shares
+            names = [n for n in ("loss", "ppl_log", "moe_aux_loss")
+                     if n in metrics]
+            summed = self._sum_over_batch(torch.stack(
+                [metrics[n] for n in names]))
+            metrics.update(zip(names, summed))
+        if c.n_experts > 0:
+            metrics["loss"] = (metrics["loss"]
+                               + c.moe_aux_coeff * metrics["moe_aux_loss"])
         return loss, metrics
+
+    def pipeline_loss(self, batch: Dict[str, torch.Tensor],
+                      backward: bool = False
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """`loss` through the GPipe schedule (pp > 1), and with `backward`
+        its backward too, which leaves each parameter's gradient of this
+        rank's loss share in its ``.grad`` (the parameters outside the
+        blocks only of the stages that use them: the step sums those over
+        pp). Returns (the global loss, detached, and the metrics), the same
+        on every rank."""
+        c = self.config
+        self._n_micro(batch["tokens"].shape[0])       # JAX's check, global B
+        part = shard_batch(self.mesh, batch, self.rules)
+        mask = part["loss_mask"]
+        count = self._count(mask)
+        total = count.clamp(min=1.0)
+        run = self(part["tokens"], part["positions"],
+                   loss_inputs=(part["targets"], mask, total))
+        P, M = self.pp_stages, self._n_micro(part["tokens"].shape[0])
+        stats = torch.zeros(2, device=mask.device)
+        if P - 1 in self._pipe.stages:
+            stats = torch.stack([
+                sum(run["outputs"][P - 1, m].detach() for m in range(M)),
+                sum(run["nll"]) / total])
+        if backward:
+            pipeline.backward(self._pipe, M, run, run["like"])
+        if self.sums_over_ranks:
+            import torch.distributed as dist
+
+            stats = self._sum_over_batch(stats)
+            dist.broadcast(stats, self._pipe.global_rank(P - 1),
+                           group=self._pipe.group)
+        metrics = {"loss": stats[0], "ppl_log": stats[1], "tokens": count}
+        if c.n_experts > 0:                  # refused with pp > 1; as JAX
+            metrics["moe_aux_loss"] = torch.zeros((), device=mask.device)
+        return stats[0], metrics
 
     def _sum_over_batch(self, t: torch.Tensor) -> torch.Tensor:
         """Sum of `t` over the ranks that hold different parts of the batch
-        (dp x fsdp x sp), in place; the tp ranks of one part hold the same
-        numbers and are not summed."""
+        (dp x fsdp x sp), in place; the tp and ep ranks of one part hold the
+        same numbers and are not summed."""
         import torch.distributed as dist
 
         dist.all_reduce(t, group=self.mesh.batch_group)

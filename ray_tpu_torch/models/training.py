@@ -1,5 +1,5 @@
 """Training step: optimizer, TrainState, train/eval step, on one device or
-over a dp x fsdp x tp x sp mesh.
+over a mesh of any of the six axes.
 
 Counterpart of ``ray_tpu/models/training.py``. The optimizer is written out
 by hand with optax's semantics for
@@ -21,9 +21,12 @@ the update, for the same reason: one copy of the state in memory).
 On a process mesh (`ray_tpu_torch.parallel`) every rank takes the global
 batch, of which the model's loss reads this rank's rows and sequence
 columns (`shard_batch`), and holds its shards of the parameters (the
-model's tp slice, FSDP2's part of it over fsdp). FSDP2 sums the gradients
-over dp and fsdp in its reduce-scatter; the step sums them over sp in one
-all-reduce; tp-sharded gradients are never summed. The update runs on the
+model's tp and ep slice, FSDP2's part of it over fsdp). FSDP2 sums the
+gradients over dp and fsdp in its reduce-scatter; the step sums them over
+sp in one all-reduce; tp- and ep-sharded gradients are never summed. With
+pp > 1 the step runs the GPipe forward and backward (`GPT.pipeline_loss`)
+in place of ``loss.backward()`` and sums the gradients of the parameters
+every stage holds over pp in one more all-reduce. The update runs on the
 local shards, and its clip takes the norm of the full logical gradient:
 the squared norms of the shards summed over the axes each is cut over.
 """
@@ -37,7 +40,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 from torch.distributed.tensor import DTensor
 
-from ..parallel.mesh import AXIS_SP, Mesh
+from ..parallel.mesh import AXIS_PP, AXIS_SP, Mesh
 from .gpt import GPT, resolve_device
 
 Params = Dict[str, torch.Tensor]
@@ -251,6 +254,8 @@ def make_train_step(model: GPT, optimizer: Optimizer, device="cuda",
         raise ValueError(f"model is on {model.device}, step asked for {device}")
     _check_mesh(model, mesh)
     norm_sums, sp_group = (), None
+    pipelined = model.pp_stages > 1
+    pp_names = set(model.pp_replicated())
     if model.sums_over_ranks:
         norm_sums = norm_sums_for(model.mesh, model.param_shard_axes())
         if model.mesh.shape[AXIS_SP] > 1:
@@ -259,12 +264,23 @@ def make_train_step(model: GPT, optimizer: Optimizer, device="cuda",
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         for p in state.params.values():
             p.grad = None
-        loss, metrics = model.loss(batch)
-        loss.backward()
+        if pipelined:
+            _, metrics = model.pipeline_loss(batch, backward=True)
+        else:
+            loss, metrics = model.loss(batch)
+            loss.backward()
         with torch.no_grad():
-            grads = [_local(p.grad) for p in state.params.values()]
+            # a pipeline stage leaves no gradient on the parameters outside
+            # its blocks that it does not use (the head's, off the last)
+            grads = [_local(p.grad) if p.grad is not None
+                     else torch.zeros_like(_local(p))
+                     for p in state.params.values()]
             if sp_group is not None:
                 _all_reduce_grads(grads, sp_group)
+            if pp_names:
+                _all_reduce_grads([g for n, g in zip(state.params, grads)
+                                   if n in pp_names],
+                                  model.mesh.group(AXIS_PP))
             g_norm = optimizer.update_(_locals(state.params), grads,
                                        state.opt_state, norm_sums)
         for p in state.params.values():

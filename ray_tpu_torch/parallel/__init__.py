@@ -3,9 +3,10 @@
 Counterpart of ``ray_tpu.parallel``: a `MeshSpec` with the named axes
 (dp/fsdp/tp/sp/pp/ep), a rank's `Mesh` over `torch.distributed` process
 groups (or the one-process `loopback_mesh`), the logical rules table with
-the parameter shards it gives a rank, and Megatron's tensor-parallel
-autograd functions (`tensor_parallel`). The port runs dp, fsdp, tp and sp;
-ep and pp are not ported yet.
+the parameter shards it gives a rank, Megatron's tensor-parallel autograd
+functions (`tensor_parallel`), the MoE FFN's collectives over ep and the
+batch group (`expert_parallel`), the GPipe schedule over pp (`pipeline`)
+and a dry run of all six axes on CPU processes (`dryrun`).
 """
 
 from .mesh import (  # noqa: F401

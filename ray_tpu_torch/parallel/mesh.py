@@ -5,9 +5,11 @@ Counterpart of ``ray_tpu/parallel/mesh.py``: the same axis names, order and
 here holds its coordinate on each axis and a process group per axis,
 from `torch.distributed.device_mesh.init_device_mesh` over the default
 process group (`build_mesh`). `loopback_mesh` is the one-process form whose
-only axis larger than 1 is ``sp``: it holds every sp shard in this process,
-as JAX's virtual-device meshes hold every device in one process, and its sp
-"group" is an in-process ring (`ray_tpu_torch.ops.ring_attention.LoopbackRing`).
+only axis larger than 1 is ``sp`` or ``pp``: it holds every sp shard (or
+every pipeline stage) in this process, as JAX's virtual-device meshes hold
+every device in one process, and its sp "group" is an in-process ring
+(`ray_tpu_torch.ops.ring_attention.LoopbackRing`), its pp "group" an
+in-process pipe (`ray_tpu_torch.parallel.pipeline.LoopbackPipe`).
 
 Axes (rank-major order, innermost last, so tp neighbours are adjacent
 ranks, then sp neighbours):
@@ -17,8 +19,9 @@ ranks, then sp neighbours):
            optimizer state over it)
   ``tp``   tensor parallel (Megatron-style: heads, mlp and vocab split)
   ``sp``   sequence parallel (ring attention)
-  ``pp``   pipeline parallel (not ported yet)
-  ``ep``   expert parallel (not ported yet)
+  ``pp``   pipeline parallel (GPipe over the stages, `parallel/pipeline.py`)
+  ``ep``   expert parallel (each rank holds E/ep experts; tokens are
+           replicated over ep, `models/moe.py`)
 """
 
 from __future__ import annotations
@@ -102,7 +105,10 @@ class Mesh:
     here, so it slices nothing. A process mesh also carries `data_mesh`,
     the ("dp", "fsdp") `DeviceMesh` that FSDP2 shards over, and
     `batch_group`, the group of the ranks that hold different parts of the
-    batch and the same parameter shards: dp x fsdp x sp (never tp)."""
+    batch and the same parameter shards: dp x fsdp x sp (never tp, ep or
+    pp). Its group ranks follow the coordinates: (dp·fsdp_size + fsdp)·sp_size
+    + sp (`batch_index`), the order in which its all-gathers stack the parts
+    of the batch."""
 
     spec: MeshSpec
     coords: Dict[str, int]
@@ -120,6 +126,14 @@ class Mesh:
         if axis not in self.groups:
             raise ValueError(f"mesh has no group for axis {axis!r}")
         return self.groups[axis]
+
+    @property
+    def batch_index(self) -> int:
+        """This rank's index in the batch group: its row block over (dp,
+        fsdp), then its column block over sp."""
+        shape, coords = self.shape, self.coords
+        return ((coords[AXIS_DP] * shape[AXIS_FSDP] + coords[AXIS_FSDP])
+                * shape[AXIS_SP] + coords[AXIS_SP])
 
     def local_range(self, axes: Sequence[str], length: int
                     ) -> Tuple[int, int]:
@@ -160,20 +174,30 @@ def build_mesh(spec: Optional[MeshSpec] = None,
     n_batch = math.prod(getattr(spec, a) for a in batch_axes)
     ranks = device_mesh.mesh.permute(order).reshape(-1, n_batch).tolist()
     batch_group, _ = dist.new_subgroups_by_enumeration(ranks)
-    return Mesh(spec, coords, groups,
+    mesh = Mesh(spec, coords, groups,
                 data_mesh=device_mesh[AXIS_DP, AXIS_FSDP],
                 batch_group=batch_group)
+    if dist.get_rank(batch_group) != mesh.batch_index:
+        raise RuntimeError(
+            f"batch group rank {dist.get_rank(batch_group)} is not the "
+            f"coordinates' index {mesh.batch_index}")
+    return mesh
 
 
 def loopback_mesh(spec: MeshSpec) -> Mesh:
-    """A one-process mesh whose only axis larger than 1 is sp: every sp
-    shard lives in this process, and the sp group is a `LoopbackRing`."""
+    """A one-process mesh whose only axis larger than 1 is sp or pp: every
+    sp shard (every stage) lives in this process, and the sp group is a
+    `LoopbackRing` (the pp group a `LoopbackPipe`)."""
     from ..ops.ring_attention import LoopbackRing
+    from .pipeline import LoopbackPipe
 
     others = {a: s for a, s in zip(AXIS_ORDER, spec.axis_sizes())
-              if a != AXIS_SP and s not in (1, -1)}
-    if others:
-        raise ValueError(f"a loopback mesh holds sp alone; got {others}")
-    spec = spec.resolve(spec.sp)
-    return Mesh(spec, {a: 0 for a in AXIS_ORDER},
-                {AXIS_SP: LoopbackRing(spec.sp)}, loopback=True)
+              if s not in (1, -1)}
+    if len(others) > 1 or set(others) - {AXIS_SP, AXIS_PP}:
+        raise ValueError(f"a loopback mesh holds sp alone or pp alone; got "
+                         f"{others}")
+    spec = spec.resolve(math.prod(others.values()))
+    groups = {AXIS_SP: LoopbackRing(spec.sp)}
+    if spec.pp > 1:
+        groups = {AXIS_PP: LoopbackPipe(spec.pp)}
+    return Mesh(spec, {a: 0 for a in AXIS_ORDER}, groups, loopback=True)

@@ -14,6 +14,8 @@ all-reduce is the identity and the backward of the gather takes this
 rank's slice. Each collective works on a copy: autograd may hand one
 gradient tensor to several consumers, and the "dots" checkpoint policy
 keeps a product's output, which an in-place all-reduce would change.
+The pair's autograd functions take any group; `expert_parallel` uses them
+over ep.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
     return out
 
 
-class _CopyToTP(torch.autograd.Function):
+class _CopyTo(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
@@ -40,7 +42,7 @@ class _CopyToTP(torch.autograd.Function):
         return _all_reduce(grad, ctx.group), None
 
 
-class _ReduceFromTP(torch.autograd.Function):
+class _ReduceFrom(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         return _all_reduce(x, group)
@@ -70,13 +72,13 @@ class _GatherFromTP(torch.autograd.Function):
 def copy_to_tp(x: torch.Tensor, group) -> torch.Tensor:
     """`x` unchanged; its gradient summed over the tp group (the input of a
     column-parallel product, whose per-rank input gradients are partial)."""
-    return _CopyToTP.apply(x, group)
+    return _CopyTo.apply(x, group)
 
 
 def reduce_from_tp(x: torch.Tensor, group) -> torch.Tensor:
     """The sum of `x` over the tp group (the partial outputs of a
     row-parallel product); the gradient passes through unchanged."""
-    return _ReduceFromTP.apply(x, group)
+    return _ReduceFrom.apply(x, group)
 
 
 def gather_from_tp(x: torch.Tensor, group) -> torch.Tensor:

@@ -175,10 +175,11 @@ def _mesh(**spec):
     return Mesh(spec.resolve(spec.total), {a: 0 for a in AXIS_ORDER})
 
 
-# experts with a pipeline: refused as JAX refuses EP+PP (gpt.py:175-178);
-# the ep and pp mesh axes are not ported; MoE across ranks (dp, fsdp, sp:
-# JAX routes over the global tokens; tp: the expert FFN is not split) waits
-# for the ep slice
+# The port once refused the ep and pp axes and MoE across ranks; those are
+# ported, and what is left of these cases is JAX's own refusals
+# (gpt.py:170-178): n_layers must divide into the pp stages, and experts
+# with pp > 1 raise. Each case raises exactly when JAX's GPT raises, with
+# the same exception type.
 @pytest.mark.parametrize("kw, mesh", [
     pytest.param(dict(n_experts=4, pp_microbatches=2), None, id="kw0"),
     pytest.param(dict(pp_microbatches=2), None, id="kw1"),
@@ -188,11 +189,33 @@ def _mesh(**spec):
     pytest.param({}, dict(dp=1, pp=2), id="pp2"),
     pytest.param(dict(n_experts=4), dict(dp=2), id="moe_dp2"),
     pytest.param(dict(n_experts=4), dict(dp=1, sp=2), id="moe_sp2"),
+    pytest.param(dict(n_experts=4), dict(dp=1, pp=2), id="moe_pp2"),
+    pytest.param(dict(n_layers=3), dict(dp=1, pp=2), id="layers3_pp2"),
+    pytest.param(dict(n_experts=4), dict(dp=2, ep=2, tp=2), id="moe_ep2"),
 ])
 def test_unported_features_raise(kw, mesh):
-    with pytest.raises(NotImplementedError):
-        tgpt.GPT(tgpt.llama_tiny(**kw), device="cpu",
-                 mesh=None if mesh is None else _mesh(**mesh))
+    from types import SimpleNamespace
+
+    def outcome(fn):
+        try:
+            fn()
+        except (ValueError, NotImplementedError) as exc:
+            return type(exc)
+        return None
+
+    jmesh = None if mesh is None else SimpleNamespace(
+        shape=_mesh(**mesh).shape)
+    want = outcome(lambda: jgpt.GPT(
+        dataclasses.replace(jgpt.llama_tiny(), **kw), mesh=jmesh))
+    cfg = dataclasses.replace(tgpt.llama_tiny(), **kw)
+    if mesh is None:
+        got = outcome(lambda: tgpt.GPT(cfg, device="cpu"))
+    else:
+        # the refusals come first; a hand-built mesh has no process groups
+        got = outcome(lambda: tgpt.check_mesh(cfg, _mesh(**mesh)))
+    assert got is want, (got, want)
+    if "pp" in (mesh or {}) and (kw.get("n_experts") or "n_layers" in kw):
+        assert want is not None
 
 
 def test_param_layout_matches_jax():

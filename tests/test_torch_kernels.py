@@ -221,3 +221,89 @@ def test_loopback_ring_matches_flash(cuda_device, causal):
     for g, w in zip(got, want):
         assert g.dtype == torch.bfloat16
         _close(g, w, norm_rtol=RING_NORM_RTOL, elem_atol=RING_ATOL)
+
+
+# --- the card paths of the MoE mesh and the pipeline --------------------------
+
+# llama_tiny on the card (bf16, the kernels at head_dim 32): the first
+# step's loss and grad norm of the mesh path against the no-mesh model's.
+# A one-rank mesh only copies (chip_smoke.py phase 10 reads them bit-equal
+# at llama_1b; the FSDP limits there are these); a pipeline runs the
+# products on microbatches of the rows, where cuBLAS may sum in another
+# order (chip_smoke.py phase 11's limits)
+MESH1_LOSS_RTOL, MESH1_GRAD_NORM_RTOL = 1e-4, 2e-3
+PIPE_LOSS_RTOL, PIPE_GRAD_NORM_RTOL = 1e-3, 1e-2
+
+
+def _first_step(cfg, mesh, tokens):
+    from ray_tpu_torch.models import gpt, training
+
+    model = gpt.GPT(cfg, seed=0, mesh=mesh)
+    opt = training.make_optimizer(total_steps=10)
+    state = training.init_train_state(model, opt, mesh=mesh)
+    step = training.make_train_step(model, opt, mesh=mesh)
+    tattn.reset_launch_counts()
+    _, m = step(state, {"tokens": tokens})
+    torch.cuda.synchronize()
+    return ({k: float(m[k]) for k in ("loss", "grad_norm")
+             if k in m} | {"aux": float(m.get("moe_aux_loss", 0.0))},
+            dict(tattn.launches))
+
+
+def _tokens(cfg, b, seed=1):
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (b, 256))).cuda()
+
+
+def _rel(a, b):
+    return abs(a - b) / abs(b)
+
+
+def test_moe_on_one_rank_nccl_mesh_equals_no_mesh(cuda_device):
+    """llama_tiny with 4 experts through the process-mesh path on a
+    one-rank NCCL group (the routing gather, the batch-group sum, the ep
+    and tp pairs, FSDP2) against no mesh: the first loss, load-balance loss
+    and grad norm, and the same kernel launches."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.parallel import MeshSpec, build_mesh
+
+    cfg = gpt.llama_tiny(n_experts=4, remat_policy="dots")
+    tokens = _tokens(cfg, 4)
+    want, want_launches = _first_step(cfg, None, tokens)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        got, launches = _first_step(
+            cfg, build_mesh(MeshSpec(dp=1, ep=1, tp=1), device_type="cuda"),
+            tokens)
+    finally:
+        dist.destroy_process_group()
+    assert launches == want_launches
+    assert _rel(got["loss"], want["loss"]) <= MESH1_LOSS_RTOL
+    assert _rel(got["aux"], want["aux"]) <= MESH1_LOSS_RTOL
+    assert _rel(got["grad_norm"], want["grad_norm"]) <= MESH1_GRAD_NORM_RTOL
+
+
+def test_loopback_pipeline_equals_no_mesh_on_card(cuda_device):
+    """llama_tiny with 4 layers through the GPipe schedule on 2 loopback
+    stages and 4 microbatches, on the kernels, against no mesh: the first
+    loss and grad norm, and 2·L·M forward, L·M dQ and L·M dK/dV launches."""
+    import dataclasses
+
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.parallel import MeshSpec, loopback_mesh
+
+    cfg = dataclasses.replace(gpt.llama_tiny(remat_policy="dots",
+                                             pp_microbatches=4), n_layers=4)
+    tokens = _tokens(cfg, 8)
+    want, _ = _first_step(cfg, None, tokens)
+    got, launches = _first_step(cfg, loopback_mesh(MeshSpec(pp=2)), tokens)
+    L, M = cfg.n_layers, 4
+    assert launches == {"flash_fwd": 2 * L * M, "flash_bwd_dq": L * M,
+                        "flash_bwd_dkv": L * M}
+    assert _rel(got["loss"], want["loss"]) <= PIPE_LOSS_RTOL
+    assert _rel(got["grad_norm"], want["grad_norm"]) <= PIPE_GRAD_NORM_RTOL

@@ -27,6 +27,8 @@ def test_import_leaves_jax_and_ray_tpu_out():
             "ray_tpu_torch.models.moe, "
             "ray_tpu_torch.models.convert, ray_tpu_torch.ops._ext, "
             "ray_tpu_torch.parallel, ray_tpu_torch.parallel.tensor_parallel, "
+            "ray_tpu_torch.parallel.expert_parallel, "
+            "ray_tpu_torch.parallel.pipeline, ray_tpu_torch.parallel.dryrun, "
             "ray_tpu_torch.ops.ring_attention; "
             "sys.path.insert(0, 'tests'); import torch_dist_worker; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -152,12 +152,20 @@ def test_loopback_mesh_model_equals_no_mesh(sp):
 
 
 def test_loopback_mesh_holds_sp_alone():
-    with pytest.raises(ValueError, match="sp alone"):
-        loopback_mesh(MeshSpec(dp=2, sp=2))
+    """A loopback mesh holds one axis larger than 1: sp (a ring) or, since
+    the pipeline, pp (a pipe); dp 2 x sp 2 and sp 2 x pp 2 are refused."""
+    for spec in (MeshSpec(dp=2, sp=2), MeshSpec(sp=2, pp=2),
+                 MeshSpec(ep=2)):
+        with pytest.raises(ValueError, match="sp alone"):
+            loopback_mesh(spec)
     mesh = loopback_mesh(MeshSpec(sp=4))
     assert mesh.shape == {"pp": 1, "dp": 1, "fsdp": 1, "ep": 1, "sp": 4,
                           "tp": 1}
     assert mesh.group("sp").size == 4
+    mesh = loopback_mesh(MeshSpec(pp=2))
+    assert mesh.shape == {"pp": 2, "dp": 1, "fsdp": 1, "ep": 1, "sp": 1,
+                          "tp": 1}
+    assert mesh.group("pp").stages == (0, 1)
 
 
 def test_step_takes_the_models_mesh():

@@ -146,49 +146,64 @@ def _coords(mesh):
 
 
 def train_rank(rank, world, spec_kw, params_path, tokens_path, steps,
-               opt_kw):
-    """`steps` train steps of f32 llama_tiny on this rank's part of the
-    global batch: losses, grad norms and tokens each step, the final
-    parameters gathered to full, and the weights the seed gave before the
-    load."""
+               opt_kw, config_kw=None):
+    """`steps` train steps of f32 llama_tiny (with `config_kw`) on this
+    rank's part of the global batch: losses, grad norms, tokens (and the
+    load-balance loss, with experts) each step, the final parameters
+    gathered to full, and the weights the seed gave before the load."""
     from ray_tpu_torch.models import convert, training
 
-    model, mesh, init = _model({}, spec_kw, params_path)
+    model, mesh, init = _model(config_kw or {}, spec_kw, params_path)
     opt = training.make_optimizer(**opt_kw)
     state = training.init_train_state(model, opt, device="cpu", mesh=mesh)
     step = training.make_train_step(model, opt, device="cpu", mesh=mesh)
     batch = {"tokens": torch.tensor(np.load(tokens_path)["tokens"]).long()}
-    losses, norms, tokens = [], [], []
+    losses, norms, tokens, aux = [], [], [], []
     for _ in range(steps):
         state, m = step(state, batch)
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
         tokens.append(float(m["tokens"]))
+        aux.append(float(m.get("moe_aux_loss", 0.0)))
     out = {f"param/{n}": t.numpy()
            for n, t in convert.full_state_dict(model).items()}
     out.update(losses=np.array(losses), grad_norms=np.array(norms),
-               tokens=np.array(tokens), init=init, coords=_coords(mesh))
+               tokens=np.array(tokens), aux=np.array(aux), init=init,
+               coords=_coords(mesh))
     eval_metrics = training.eval_step_fn(model, device="cpu", mesh=mesh)(
         batch)
     out["eval_loss"] = np.array(float(eval_metrics["loss"]))
     return out
 
 
-def forward_rank(rank, world, spec_kw, config_kw, params_path, tokens_path):
+def forward_rank(rank, world, spec_kw, config_kw, params_path, tokens_path,
+                 family="gpt2"):
     """Logits of this rank's sequence shard (its vocab columns under tp),
-    the global loss and the full gradients of a GPT-2-family model (learned
-    positions, LayerNorm biases, tied embeddings) on a mesh."""
+    the global loss and the full gradients of a model (by default the GPT-2
+    family: learned positions, LayerNorm biases, tied embeddings) on a
+    mesh. With pp > 1 the pipeline's forward and backward give the
+    gradients, those of the parameters every stage holds summed over pp."""
     from ray_tpu_torch.models import convert
     from ray_tpu_torch.parallel import shard_batch
 
-    model, mesh, _ = _model(config_kw, spec_kw, params_path, family="gpt2")
+    model, mesh, _ = _model(config_kw, spec_kw, params_path, family=family)
     tokens = torch.tensor(np.load(tokens_path)["tokens"]).long()
     with torch.no_grad():
         # apply takes this rank's tokens (positions default to the shard's
         # global ones); loss takes the global batch
         logits = model.apply(shard_batch(mesh, {"tokens": tokens})["tokens"])
-    loss, metrics = model.loss({"tokens": tokens})
-    loss.backward()
+    if model.pp_stages > 1:
+        loss, metrics = model.pipeline_loss({"tokens": tokens},
+                                            backward=True)
+        for n in model.pp_replicated():
+            p = dict(model.named_parameters())[n]
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            g = p.grad.to_local() if hasattr(p.grad, "to_local") else p.grad
+            dist.all_reduce(g, group=mesh.group("pp"))
+    else:
+        loss, metrics = model.loss({"tokens": tokens})
+        loss.backward()
     grads = convert.full_state_dict(
         model, {n: p.grad for n, p in model.named_parameters()})
     out = {f"grad/{n}": g.numpy() for n, g in grads.items()}
@@ -242,4 +257,109 @@ def clip_rank(rank, world, spec_kw, inputs_path, logical, opt_kw):
     out = {f"param/{n}": t.numpy() for n, t in
            gather_params(params, logical, mesh).items()}
     out.update(norms=np.array(norms), bit_identical=np.array(same))
+    return out
+
+
+# --- the MoE FFN on a mesh -----------------------------------------------------
+
+def moe_rank(rank, world, spec_kw, inputs_path, top_k, capacity_factor):
+    """`moe_ffn` and its routing on this rank's rows and columns of a global
+    f32 input, with its ep and tp slices of the expert weights: routing
+    (expert choice, slot, fits) of its tokens, the output, the metrics, and
+    the gradients of sum(out * probe): of its part of x, and of the router
+    and expert weights summed over the batch group and gathered to full."""
+    from ray_tpu_torch.models import moe
+    from ray_tpu_torch.parallel import (DEFAULT_RULES, MeshSpec, build_mesh,
+                                        gather_params, logical_sharding,
+                                        shard_params)
+
+    mesh = build_mesh(MeshSpec(**spec_kw), device_type="cpu")
+    data = np.load(inputs_path)
+    logical = {"router": ("embed", None), "w_up": ("expert", "embed", "mlp"),
+               "w_gate": ("expert", "embed", "mlp"),
+               "w_down": ("expert", "mlp", "embed")}
+    rules = DEFAULT_RULES.only("tp", "ep")
+    weights = {n: t.clone().requires_grad_() for n, t in shard_params(
+        {n: torch.tensor(data[n]) for n in logical}, logical, mesh,
+        rules).items()}
+    index = logical_sharding(mesh, DEFAULT_RULES,
+                             ("act_batch", "act_seq", None), data["x"].shape)
+    x = torch.tensor(data["x"])[index].clone().requires_grad_()
+    m = moe.MoEMesh.from_mesh(mesh)
+    with torch.no_grad():
+        r = moe.route_on_mesh(x, weights["router"], top_k, capacity_factor, m)
+    out, metrics = moe.moe_ffn(
+        x, weights["router"], weights["w_up"], weights["w_gate"],
+        weights["w_down"], top_k=top_k, capacity_factor=capacity_factor,
+        dtype=torch.float32, mesh=m)
+    (out * torch.tensor(data["probe"])[index]).sum().backward()
+    grads = {}
+    for n, w in weights.items():
+        g = w.grad.clone()
+        dist.all_reduce(g, group=mesh.batch_group)
+        grads[n] = g
+    grads = gather_params(grads, logical, mesh, rules)
+    res = {f"grad/{n}": g.numpy() for n, g in grads.items()}
+    res.update({k: r[k].numpy() for k in ("expert_idx", "slot", "fits")})
+    res.update(out=out.detach().numpy(), grad_x=x.grad.numpy(),
+               aux=np.array(float(metrics["moe_aux_loss"])),
+               overflow=np.array(float(metrics["moe_overflow"])),
+               coords=_coords(mesh))
+    return res
+
+
+
+# --- a mesh of one rank --------------------------------------------------------
+
+# the collectives of the model on a process mesh, by module
+MESH_CALLS = {
+    "ray_tpu_torch.models.gpt": ("copy_to_tp", "reduce_from_tp",
+                                 "gather_from_tp"),
+    "ray_tpu_torch.models.moe": ("copy_to_tp", "reduce_from_tp",
+                                 "copy_to_ep", "reduce_from_ep",
+                                 "sum_over_batch", "gather_over_batch"),
+    "ray_tpu_torch.models.training": ("_global_norms",),
+}
+
+
+def mesh1_rank(rank, world, config_kw, params_path, tokens_path, steps,
+               opt_kw):
+    """`steps` train steps of f32 llama_tiny (with `config_kw`) through the
+    process-mesh path on a mesh of this one rank, counting the calls of
+    each of MESH_CALLS (as module attributes: the model looks them up at
+    each call): losses, grad norms, the load-balance loss, the final
+    parameters and the calls per step, "module.name" -> calls."""
+    import importlib
+
+    from ray_tpu_torch.models import convert, training
+
+    calls, real = {}, {}
+    for mod_name, names in MESH_CALLS.items():
+        mod = importlib.import_module(mod_name)
+        for n in names:
+            key = f"{mod_name.rsplit('.', 1)[1]}.{n}"
+            calls[key], real[key] = 0, getattr(mod, n)
+
+            def counted(*args, _key=key, **kw):
+                calls[_key] += 1
+                return real[_key](*args, **kw)
+
+            setattr(mod, n, counted)
+    model, mesh, _ = _model(config_kw, dict(dp=1), params_path)
+    opt = training.make_optimizer(**opt_kw)
+    state = training.init_train_state(model, opt, device="cpu", mesh=mesh)
+    step = training.make_train_step(model, opt, device="cpu", mesh=mesh)
+    batch = {"tokens": torch.tensor(np.load(tokens_path)["tokens"]).long()}
+    losses, norms, aux = [], [], []
+    for _ in range(steps):
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        aux.append(float(m.get("moe_aux_loss", 0.0)))
+    out = {f"param/{n}": t.numpy()
+           for n, t in convert.full_state_dict(model).items()}
+    out.update(losses=np.array(losses), grad_norms=np.array(norms),
+               aux=np.array(aux),
+               call_names=np.array(list(calls)),
+               calls=np.array([calls[k] / steps for k in calls]))
     return out
