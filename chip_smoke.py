@@ -71,7 +71,19 @@ Phases, each fatal on failure (non-zero exit, no result line):
     schedule on `loopback_mesh(MeshSpec(pp=4))`: 4 stages of 4 layers, 4
     microbatches of 4 rows, the flash kernels in every stage (2·L·M forward,
     L·M dQ and L·M dK/dV launches a step), the first loss and grad norm
-    against phase 5's (LONG_LOSS_RTOL, LONG_GRAD_NORM_RTOL).
+    against phase 5's (LONG_LOSS_RTOL, LONG_GRAD_NORM_RTOL);
+12. the RL learners (``ray_tpu_torch.rl``, CartPole widths, hidden 64 x 64)
+    on the card against the same learners on the CPU, from the same seeded
+    weights over the same seeded batches: PPO on a [256, 4] minibatch,
+    V-trace on [2, 64] fragments with bootstrap_obs, DQN over 5 updates of
+    64 rows at target_update_freq 2 (two target syncs); stats within
+    RL_STATS_RTOL, parameters within RL_PARAM_RTOL, ms per update on each;
+    then JAX's PPO learning test in one process (2 env runners sampling on
+    the CPU, 512 steps each, 10 epochs of 256-row minibatches, the learner
+    on the card), which fails unless the best episode_reward_mean reaches
+    RL_REWARD_BAR within RL_MAX_ITERS iterations; prints the iterations,
+    env steps/s and the learner's ms per update on the card (CUDA events)
+    and on the CPU.
 
 ``--profile PATH`` profiles two more steps of each train path and writes
 one table per path (PATH with the path's name before its suffix);
@@ -139,6 +151,17 @@ LONG_GRAD_NORM_RTOL = 1e-2
 # phase 9: the process-mesh path's first step against phase 5's
 FSDP_LOSS_RTOL = 1e-4
 FSDP_GRAD_NORM_RTOL = 2e-3
+# phase 12: the RL learners (CartPole widths, hidden 64 x 64), f32 on the
+# card against the CPU (TF32 off): every update's stats to RL_STATS_RTOL
+# relative, the parameters normwise per tensor to RL_PARAM_RTOL (about 2x
+# the largest reading of this comparison, 3.9e-7 for DQN, in PERF.md); the
+# PPO loop's bar is JAX's learning test's (tests/test_rl.py:84-106)
+RL_OBS, RL_ACTIONS, RL_HIDDEN = 4, 2, (64, 64)
+DQN_UPDATES = 5
+RL_STATS_RTOL = 1e-5
+RL_PARAM_RTOL = 8e-7
+RL_REWARD_BAR = 80
+RL_MAX_ITERS = 40
 
 REPLACES = {
     "flash_fwd": "ray_tpu/ops/attention.py:89",
@@ -597,12 +620,12 @@ def kernel_class(name: str) -> str:
     return "other"
 
 
-def profile_steps(torch, step, state, batch_dict, path, step_ms, n=2,
-                  moe_dims=None):
-    """Device time by kernel class over `n` more steps (torch.profiler),
-    the full table written to `path`; returns the per-step summary. The
-    idle share is taken against `step_ms`, the step time measured without
-    the profiler (whose host overhead stretches the profiled steps).
+def profile_steps(torch, fn, path, step_ms, n=2, moe_dims=None):
+    """Device time by kernel class over `n` more calls of `fn`, one step each
+    (torch.profiler), the full table written to `path` unless it is None;
+    returns the per-step summary, the kernels launched per step included.
+    The idle share is taken against `step_ms`, the step time measured
+    without the profiler (whose host overhead stretches the profiled steps).
 
     `moe_dims` = (tokens T, capacity C, experts x capacity E*C) adds the
     class "MoE dispatch and combine": the kernels of every op that has an
@@ -617,14 +640,16 @@ def profile_steps(torch, step, state, batch_dict, path, step_ms, n=2,
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=moe_dims is not None) as prof:
         for _ in range(n):
-            state, _ = step(state, batch_dict)
+            fn()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / n
     classes = {"flash kernels": 0.0, "matrix products": 0.0, "other": 0.0}
+    kernels = 0
     for evt in prof.key_averages():
         if evt.device_type.name != "CUDA":
             continue
         classes[kernel_class(evt.key)] += evt.self_device_time_total
+        kernels += evt.count
     if moe_dims is not None:
         n_tok, cap, ec = moe_dims
         moe = 0.0
@@ -641,16 +666,18 @@ def profile_steps(torch, step, state, batch_dict, path, step_ms, n=2,
         classes["MoE dispatch and combine"] = moe
     per_step = {k: v / 1e3 / n for k, v in classes.items()}
     busy = sum(per_step.values())
-    with open(path, "w") as f:
-        f.write(prof.key_averages().table(
-            sort_by="self_device_time_total", row_limit=60))
+    if path is not None:
+        with open(path, "w") as f:
+            f.write(prof.key_averages().table(
+                sort_by="self_device_time_total", row_limit=60))
     idle = max(0.0, 1 - busy / step_ms)
-    log(f"profile ({n} steps, {path}): device busy {busy:.1f} ms/step, idle "
-        f"share {idle:.3f} of the unprofiled {step_ms:.1f} ms step (profiled "
-        f"wall {wall_ms:.1f} ms/step); by class " + ", ".join(
-            f"{k} {v:.1f} ms" for k, v in per_step.items()))
+    log(f"profile ({n} steps, {path}): device busy {busy:.4f} ms/step, idle "
+        f"share {idle:.3f} of the unprofiled {step_ms:.4f} ms step (profiled "
+        f"wall {wall_ms:.4f} ms/step, {kernels / n:.0f} kernels); by class "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in per_step.items()))
     return {"profiled_wall_ms": wall_ms, "busy_ms": busy,
-            "idle_share": idle, "by_class_ms": per_step}
+            "idle_share": idle, "by_class_ms": per_step,
+            "kernels": kernels / n}
 
 
 def pick_batch(torch, step, state, cfg, batches, name):
@@ -870,8 +897,13 @@ def train_path(torch, A, models, smi_name, name, cfg, batches, warmup=2,
                            cfg.moe_capacity_factor)
             moe_dims = (n_tok, cap, cfg.n_experts * cap)
         path = Path(profile_path)
+
+        def one_step():
+            nonlocal state
+            state, _ = step(state, batch_dict)
+
         result["profile"] = profile_steps(
-            torch, step, state, batch_dict,
+            torch, one_step,
             path.with_name(f"{path.stem}.{name}{path.suffix}"),
             step_s * 1e3, moe_dims=moe_dims)
     return counts, result
@@ -1139,13 +1171,227 @@ def pipeline_path(torch, A, models, smi, cfg, base, name, by_path, profile):
     return out
 
 
+# --- phase 12: the RL learners on the card ----------------------------------
+
+def rl_weights(kind: str, seed: int):
+    """Weights in the JAX modules' pytree layout (what `params_from_jax`
+    takes), CartPole widths, hidden 64 x 64, drawn from `seed`."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def dense(n_in, n_out):
+        return {"w": (rng.standard_normal((n_in, n_out))
+                      / math.sqrt(n_in)).astype(np.float32),
+                "b": (0.1 * rng.standard_normal(n_out)).astype(np.float32)}
+
+    widths = (RL_OBS,) + RL_HIDDEN
+    nested = {"torso": [dense(a, b) for a, b in zip(widths, widths[1:])]}
+    heads = ({"pi": RL_ACTIONS, "vf": 1} if kind == "policy"
+             else {"q": RL_ACTIONS})
+    nested.update({h: dense(widths[-1], n) for h, n in heads.items()})
+    return nested
+
+
+def rl_batches(kind: str, seed: int):
+    """Phase 12(a)'s batches from `numpy.random.default_rng(seed)`: a PPO
+    minibatch [256, 4], V-trace fragments [2, 64] with bootstrap_obs, or
+    DQN_UPDATES batches of 64 transitions."""
+    import numpy as np
+    from ray_tpu_torch.rl import NEXT_OBS
+    from ray_tpu_torch.rl import sample_batch as SB
+
+    rng = np.random.default_rng(seed)
+
+    def logp(shape):
+        return (np.log(0.5) + 0.3 * rng.standard_normal(shape)).astype(
+            np.float32)
+
+    def normal(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    def actions(*shape):
+        return rng.integers(0, RL_ACTIONS, shape).astype(np.int32)
+
+    if kind == "ppo":
+        n = 256
+        return [{SB.OBS: normal(n, RL_OBS), SB.ACTIONS: actions(n),
+                 SB.LOGP: logp(n), SB.ADVANTAGES: normal(n),
+                 SB.VALUE_TARGETS: normal(n)}]
+    if kind == "vtrace":
+        b, t = 2, 64
+        dones = rng.random((b, t)) < 0.05
+        dones[0, 10] = dones[1, 40] = True
+        return [{SB.OBS: normal(b, t, RL_OBS), SB.ACTIONS: actions(b, t),
+                 SB.REWARDS: normal(b, t), SB.DONES: dones,
+                 SB.LOGP: logp((b, t)),
+                 "bootstrap_obs": normal(b, RL_OBS)}]
+    n = 64
+    return [{SB.OBS: normal(n, RL_OBS), SB.ACTIONS: actions(n),
+             SB.REWARDS: normal(n), NEXT_OBS: normal(n, RL_OBS),
+             SB.DONES: rng.random(n) < 0.1} for _ in range(DQN_UPDATES)]
+
+
+def rl_learner(rl, kind: str, device: str):
+    if kind == "dqn":
+        learner = rl.DQNLearner(rl.QNetworkModule(RL_OBS, RL_ACTIONS),
+                                lr=1e-2, gamma=0.9, target_update_freq=2,
+                                huber_delta=0.5, device=device)
+        state = rl.params_from_jax(rl_weights("q", 12))
+        learner.module.load_state_dict(state)
+        learner.target_module.load_state_dict(state)
+        return learner
+    learner = rl.Learner(rl.DiscretePolicyModule(RL_OBS, RL_ACTIONS),
+                         loss=kind, lr=1e-3, entropy_coeff=0.01, gamma=0.9,
+                         c_clip=0.9, device=device)
+    learner.set_weights(rl_weights("policy", 12))
+    return learner
+
+
+def rl_learner_check(torch, rl, smi):
+    """Phase 12(a): each learner on the card and on the CPU from the same
+    weights over the same batches: every update's stats within
+    RL_STATS_RTOL, the parameters (and DQN's target network) normwise within
+    RL_PARAM_RTOL; then its ms per update on each, and on the card the
+    device's busy time and kernels per update (torch.profiler)."""
+    import numpy as np
+
+    out, failed = {}, []
+    for kind in ("ppo", "vtrace", "dqn"):
+        batches = rl_batches(kind, 12)
+        gpu, cpu = (rl_learner(rl, kind, d) for d in ("cuda", "cpu"))
+        stats_err = 0.0
+        for batch in batches:
+            got, want = gpu.update(batch), cpu.update(batch)
+            if not all(math.isfinite(v) for v in got.values()):
+                failed.append(f"{kind}: stats not finite {got}")
+            stats_err = max([stats_err] + [abs(got[k] - want[k])
+                                           / (abs(want[k]) or 1.0)
+                                           for k in want])
+        modules = [("module", gpu.module, cpu.module)]
+        if kind == "dqn":
+            modules.append(("target", gpu.target_module, cpu.target_module))
+        param_err = 0.0
+        for _, g, c in modules:
+            for (n, pg), pc in zip(g.state_dict().items(),
+                                   c.state_dict().values()):
+                pc = pc.double()
+                param_err = max(param_err, float(
+                    (pg.cpu().double() - pc).norm() / pc.norm()))
+        # ms per update (after the comparison: these updates move on)
+        tb = batches[-1]
+        ms = cuda_ms(torch, lambda: gpu.update(tb), iters=50, warmup=5)
+        prof = profile_steps(torch, lambda: gpu.update(tb), None, ms, n=20)
+        busy, kernels = prof["busy_ms"], prof["kernels"]
+        cpu.update(tb)
+        t0 = time.perf_counter()
+        for _ in range(20):
+            cpu.update(tb)
+        cpu_ms = (time.perf_counter() - t0) / 20 * 1e3
+        out[kind] = {"updates": len(batches), "stats_max_rel": stats_err,
+                     "param_max_norm_rel": param_err, "ms": ms,
+                     "busy_ms": busy, "kernels": kernels,
+                     "idle": max(0.0, 1 - busy / ms), "cpu_ms": cpu_ms}
+        log(f"rl {kind}: card vs CPU over {len(batches)} update(s): stats "
+            f"{stats_err:.3e} (<= {RL_STATS_RTOL:.0e}), params normwise "
+            f"{param_err:.3e} (<= {RL_PARAM_RTOL:.0e}); ms per update "
+            f"{ms:.4f} on the card (device busy {busy:.4f}, idle share "
+            f"{max(0.0, 1 - busy / ms):.3f}, {kernels:.0f} kernels), "
+            f"{cpu_ms:.4f} on the CPU ({smi})")
+        if stats_err > RL_STATS_RTOL or param_err > RL_PARAM_RTOL:
+            failed.append(f"{kind}: stats {stats_err:.3e}, params "
+                          f"{param_err:.3e}")
+    if failed:
+        raise SmokeFailure("RL learners, card against CPU: "
+                           + "; ".join(failed))
+    return out
+
+
+def rl_ppo_loop(torch, rl, A, smi, by_path, name):
+    """Phase 12(b): JAX's PPO learning test (tests/test_rl.py:84-106) in one
+    process: 2 env runners on the CPU, the learner on the card, the loop of
+    ray_tpu/rl/ppo.py's train, until the best episode_reward_mean reaches
+    RL_REWARD_BAR or RL_MAX_ITERS iterations pass."""
+    import numpy as np
+
+    cfg = {"observation_size": RL_OBS, "action_size": RL_ACTIONS,
+           "hidden": RL_HIDDEN}
+    learner = rl.Learner(rl.DiscretePolicyModule(**cfg), lr=1e-3,
+                         entropy_coeff=0.01)
+    runners = [rl.EnvRunner(rl.CartPoleEnv, cfg, seed=i * 1000,
+                            device="cpu") for i in range(2)]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    best, rewards_by_iter = -math.inf, []
+    sample_s = update_ms = 0.0
+    steps = updates = 0
+    A.reset_launch_counts()
+    t_loop = time.perf_counter()
+    for iteration in range(RL_MAX_ITERS):
+        weights = learner.get_weights()
+        t0 = time.perf_counter()
+        results = [r.sample(weights, 512) for r in runners]
+        sample_s += time.perf_counter() - t0
+        steps += 512 * len(runners)
+        batch = rl.concat_batches([rl.SampleBatch(b) for b, _ in results])
+        start.record()
+        for _ in range(10):
+            for mb in batch.shuffle(seed=iteration).minibatches(256):
+                stats = learner.update(mb)
+                updates += 1
+        end.record()
+        end.synchronize()
+        update_ms += start.elapsed_time(end)
+        rewards = [s["episode_reward_mean"] for _, s in results
+                   if not math.isnan(s["episode_reward_mean"])]
+        if rewards:
+            best = max(best, float(np.mean(rewards)))
+        rewards_by_iter.append(float(np.mean(rewards)) if rewards
+                               else None)
+        if best >= RL_REWARD_BAR:
+            break
+    loop_s = time.perf_counter() - t_loop
+    by_path[name] = dict(A.launches)
+    # the same learner's update on the CPU, as a yardstick: the last
+    # iteration's minibatches from the same weights
+    cpu = rl.Learner(rl.DiscretePolicyModule(**cfg), lr=1e-3,
+                     entropy_coeff=0.01, device="cpu")
+    cpu.set_weights(learner.get_weights())
+    mbs = list(batch.shuffle(seed=0).minibatches(256))
+    t0 = time.perf_counter()
+    for _ in range(10):
+        for mb in mbs:
+            cpu.update(mb)
+    cpu_ms = (time.perf_counter() - t0) / (10 * len(mbs)) * 1e3
+    out = {"iterations": iteration + 1, "best_reward": best,
+           "rewards": rewards_by_iter, "env_steps": steps,
+           "env_steps_per_s": steps / sample_s, "updates": updates,
+           "update_ms": update_ms / updates, "cpu_update_ms": cpu_ms,
+           "loop_s": loop_s, "last_stats": stats}
+    log(f"rl ppo loop (CartPole, 2 runners on the CPU x 512 steps, learner "
+        f"on the card): {iteration + 1} iterations, best "
+        f"episode_reward_mean {best:.2f} (bar {RL_REWARD_BAR}), rewards "
+        f"{[None if r is None else round(r, 2) for r in rewards_by_iter]}")
+    log(f"rl ppo loop: {steps / sample_s:.1f} env steps/s sampling, "
+        f"{updates} updates at {update_ms / updates:.4f} ms each on the card "
+        f"(CUDA events) against {cpu_ms:.4f} ms on the CPU, loop "
+        f"{loop_s:.1f} s ({smi}); flash launches {by_path[name]}")
+    if not math.isfinite(stats["total_loss"]):
+        raise SmokeFailure(f"rl ppo loop: loss not finite {stats}")
+    if best < RL_REWARD_BAR:
+        raise SmokeFailure(f"rl ppo loop: best episode_reward_mean {best} "
+                           f"< {RL_REWARD_BAR} after {iteration + 1} "
+                           "iterations")
+    return out
+
+
 def run(args) -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     try:
-        from ray_tpu_torch import models
+        from ray_tpu_torch import models, rl
         from ray_tpu_torch.ops import _ext
         from ray_tpu_torch.ops import attention as A
     except ImportError as exc:
@@ -1287,6 +1533,13 @@ def run(args) -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+    # phase 12: the RL learners on the card against the CPU, then PPO on
+    # CartPole with the learner on the card (also under --skip-main); the
+    # path launches no flash kernel, and its counts say so
+    rl_out = {"learners": rl_learner_check(torch, rl, smi),
+              "ppo_loop": rl_ppo_loop(torch, rl, A, smi, by_path,
+                                      "rl_ppo_cartpole")}
+
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name],
                 "launches": by_path["gpt2_medium"][name],
@@ -1304,7 +1557,7 @@ def run(args) -> int:
                        "readings": {k: r["readings"]
                                     for k, r in results.items()},
                        "model_check": model, "ring": ring,
-                       "main": main},
+                       "main": main, "rl": rl_out},
                       f, indent=1)
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -29,7 +29,11 @@ def test_import_leaves_jax_and_ray_tpu_out():
             "ray_tpu_torch.parallel, ray_tpu_torch.parallel.tensor_parallel, "
             "ray_tpu_torch.parallel.expert_parallel, "
             "ray_tpu_torch.parallel.pipeline, ray_tpu_torch.parallel.dryrun, "
-            "ray_tpu_torch.ops.ring_attention; "
+            "ray_tpu_torch.ops.ring_attention, ray_tpu_torch.rl, "
+            "ray_tpu_torch.rl.env, ray_tpu_torch.rl.sample_batch, "
+            "ray_tpu_torch.rl.replay_buffers, ray_tpu_torch.rl.module, "
+            "ray_tpu_torch.rl.convert, ray_tpu_torch.rl.learner, "
+            "ray_tpu_torch.rl.dqn, ray_tpu_torch.rl.vector_env; "
             "sys.path.insert(0, 'tests'); import torch_dist_worker; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ray_tpu', 'optax', 'triton')]; "
@@ -88,6 +92,21 @@ def test_entry_points_default_to_cuda():
         eval_step_fn(model)
     init_train_state(model, opt, device="cpu")
     make_train_step(model, opt, device="cpu")
+
+    # the RL learners and the env runner run on the card unless asked
+    from ray_tpu_torch import rl
+
+    for learner, module in ((rl.Learner, rl.DiscretePolicyModule),
+                            (rl.DQNLearner, rl.QNetworkModule)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            learner(module(4, 2))
+        assert learner(module(4, 2), device="cpu").device.type == "cpu"
+    cfg = {"observation_size": 4, "action_size": 2}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rl.EnvRunner(rl.CartPoleEnv, cfg)
+    runner = rl.EnvRunner(rl.CartPoleEnv, cfg, device="cpu")
+    assert runner.device.type == "cpu"
+    assert next(runner.module.parameters()).device.type == "cpu"
 
 
 def test_kernel_sources_ship():

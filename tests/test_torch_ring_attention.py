@@ -10,6 +10,8 @@ kernels' plain versions. `ProcessGroupRing` runs on gloo processes
 
 import functools
 import importlib
+import os
+import time
 
 import jax
 import jax.numpy as jnp
@@ -184,16 +186,33 @@ def test_process_group_ring_equals_loopback(world, tmp_path):
     inputs = tmp_path / "qkv.npz"
     np.savez(inputs, q=q, k=k, v=v)
     for causal in (True, False):
+        t0 = time.monotonic()
         ranks = torch_dist_worker.launch(torch_dist_worker.ring_rank, world,
                                          tmp_path, str(inputs), causal)
+        # where a failure happened: the xdist worker, and how close the
+        # group came to launch's deadline
+        where = (f"causal {causal}, xdist worker "
+                 f"{os.environ.get('PYTEST_XDIST_WORKER', 'none')}, group "
+                 f"took {time.monotonic() - t0:.1f} s of the "
+                 f"{torch_dist_worker.LAUNCH_TIMEOUT:.0f} s deadline")
         for rank, res in enumerate(ranks):
-            assert bool(res["cuda_raises"]), rank
+            assert bool(res["cuda_raises"]), f"rank {rank}, {where}"
             for name in ("out", "dq", "dk", "dv"):
                 # the same partials on the same values in the same order
-                np.testing.assert_array_equal(res[name],
-                                              res[f"loopback_{name}"],
-                                              err_msg=f"{name} rank {rank}")
-        # and the shards make up the loopback ring held against JAX above
-        full = _loopback(q, k, v, world, causal)
+                np.testing.assert_array_equal(
+                    res[name], res[f"loopback_{name}"],
+                    err_msg=f"{name} rank {rank}, {where}")
+        # and the shards make up the loopback ring over the whole sequence,
+        # bit for bit when both are computed in the ranks' processes ...
+        full = ranks[0]["loopback_full_out"]
+        for rank, res in enumerate(ranks):
+            np.testing.assert_array_equal(res["loopback_full_out"], full,
+                                          err_msg=f"rank {rank}, {where}")
         np.testing.assert_array_equal(
-            np.concatenate([r["out"] for r in ranks], axis=2), full[0])
+            np.concatenate([r["out"] for r in ranks], axis=2), full,
+            err_msg=where)
+        # ... and that ring is the one held against JAX above, computed in
+        # this process (another process: sums may split another way)
+        np.testing.assert_allclose(full, _loopback(q, k, v, world, causal)[0],
+                                   rtol=F32_RTOL, atol=F32_ATOL,
+                                   err_msg=where)

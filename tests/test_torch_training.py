@@ -115,8 +115,9 @@ def _update_before_chunking(opt, params, grads, state):
     torch._foreach_lerp_(mu, g, 1 - opt.b1)
     torch._foreach_mul_(nu, opt.b2)
     torch._foreach_addcmul_(nu, g, g, value=1 - opt.b2)
-    mu_hat = torch._foreach_div(mu, 1 - opt.b1 ** count)
-    denom = torch._foreach_div(nu, 1 - opt.b2 ** count)
+    # the bias corrections as optax computes them, in f32
+    mu_hat = torch._foreach_div(mu, ttrain._bias_correction(opt.b1, count))
+    denom = torch._foreach_div(nu, ttrain._bias_correction(opt.b2, count))
     torch._foreach_sqrt_(denom)
     torch._foreach_add_(denom, opt.eps)
     upd = torch._foreach_div(mu_hat, denom)

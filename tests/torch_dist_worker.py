@@ -22,13 +22,16 @@ import torch.distributed as dist
 
 # the parent tests run torch on 2 threads too, so sums come out the same
 THREADS = 2
+# seconds a group may live before `launch` kills it
+LAUNCH_TIMEOUT = 240.0
 
 
 def launch(target: Callable, world: int, workdir, *args,
-           timeout: float = 240.0) -> List[Dict[str, np.ndarray]]:
+           timeout: float = LAUNCH_TIMEOUT) -> List[Dict[str, np.ndarray]]:
     """Run target(rank, world, *args) on `world` gloo ranks; fail if any
     rank fails or the group outlives `timeout` seconds."""
     workdir = str(workdir)
+    t0 = time.monotonic()
     ctx = multiprocessing.get_context("spawn")
     store = os.path.join(workdir, f"store_{target.__name__}_{world}")
     procs = [ctx.Process(target=_rank_main,
@@ -36,7 +39,7 @@ def launch(target: Callable, world: int, workdir, *args,
              for rank in range(world)]
     for p in procs:
         p.start()
-    deadline = time.monotonic() + timeout
+    deadline = t0 + timeout
     for p in procs:
         p.join(max(0.0, deadline - time.monotonic()))
     hung = [rank for rank, p in enumerate(procs) if p.is_alive()]
@@ -46,8 +49,10 @@ def launch(target: Callable, world: int, workdir, *args,
             p.join(10)
     codes = [p.exitcode for p in procs]
     if hung or any(codes):
-        raise AssertionError(f"{target.__name__} on {world} ranks: hung "
-                             f"ranks {hung}, exit codes {codes}")
+        raise AssertionError(
+            f"{target.__name__} on {world} ranks: hung ranks {hung}, exit "
+            f"codes {codes}, after {time.monotonic() - t0:.1f} s of the "
+            f"{timeout:.0f} s deadline")
     return [dict(np.load(_out_path(workdir, target, rank)))
             for rank in range(world)]
 
@@ -77,7 +82,9 @@ def _rank_main(target, rank, world, store, workdir, args):
 def ring_rank(rank, world, inputs_path, causal):
     """This rank's shard through `ProcessGroupRing` over the world, and the
     same shard through `LoopbackRing` holding every shard: outputs and the
-    q/k/v gradients of sum(out**2). Also: a CUDA tensor on the gloo ring
+    q/k/v gradients of sum(out**2), and the loopback ring's output over the
+    whole sequence (the reference for the ranks' shards, computed here on
+    the ranks' own thread count). Also: a CUDA tensor on the gloo ring
     raises before anything is sent (a stand-in object carries the device,
     so this needs no card; the exchanges after it would fail if a send had
     gone out)."""
@@ -107,12 +114,17 @@ def ring_rank(rank, world, inputs_path, causal):
                                      causal=causal)]
         sum((o ** 2).sum() for o in outs).backward()
         j = shards.index(rank)
-        return [outs[j].detach().numpy()] + [t[j].grad.numpy() for t in ts]
+        full = torch.cat([o.detach() for o in outs], dim=2).numpy()
+        return [outs[j].detach().numpy()] + [t[j].grad.numpy()
+                                             for t in ts], full
 
     names = ("out", "dq", "dk", "dv")
-    res = dict(zip(names, run(ring, [rank])))
-    res.update({f"loopback_{n}": a for n, a in
-                zip(names, run(R.LoopbackRing(world), list(range(world))))})
+    mine, _ = run(ring, [rank])
+    loop, full = run(R.LoopbackRing(world), list(range(world)))
+    res = dict(zip(names, mine))
+    res.update({f"loopback_{n}": a for n, a in zip(names, loop)})
+    # the whole sequence's output, every shard through the loopback ring
+    res["loopback_full_out"] = full
     res["cuda_raises"] = np.array(cuda_raises)
     return res
 
