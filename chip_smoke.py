@@ -83,11 +83,25 @@ Phases, each fatal on failure (non-zero exit, no result line):
     on the card), which fails unless the best episode_reward_mean reaches
     RL_REWARD_BAR within RL_MAX_ITERS iterations; prints the iterations,
     env steps/s and the learner's ms per update on the card (CUDA events)
-    and on the CPU.
+    and on the CPU;
+13. the port's runtime on the card: ``ray_tpu_torch.init(num_cpus=4)``
+    counts the card as the node's "GPU" resource; a ``num_gpus=1`` task
+    sees ``{"GPU": [0]}``, ``CUDA_VISIBLE_DEVICES=0`` and the card, a task
+    without a slot sees ``CUDA_VISIBLE_DEVICES=""`` and no card; then an
+    actor with ``num_gpus=1`` runs phase 4's steps (same seed-0 weights;
+    the tokens sent through ``put`` as a CPU tensor) in its own worker
+    process: launches equal to phase 4's, and the first loss and grad norm
+    against phase 4's (FSDP_LOSS_RTOL, FSDP_GRAD_NORM_RTOL); the actor
+    ``put``s its parameters (CPU f32), the driver ``get``s them and holds
+    each tensor to its own phase-4 model's within RUNTIME_PARAM_RTOL
+    normwise; put and get seconds and GB/s, the bytes spilled and
+    ``/dev/shm``'s size. Under ``--skip-main`` the actor puts 64 MB of
+    seeded data instead, and runs no step.
 
 ``--profile PATH`` profiles two more steps of each train path and writes
 one table per path (PATH with the path's name before its suffix);
-``--skip-main`` skips the train paths, phases 4-6 and 8-11. Prints the
+``--skip-main`` skips the train paths, phases 4-6 and 8-11, and phase
+13's steps. Prints the
 kernels as one JSON line, then the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when
 CUDA is missing or the package is not beside this script.
@@ -99,8 +113,10 @@ import argparse
 import contextlib
 import dataclasses
 import gc
+import io
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -162,6 +178,11 @@ RL_STATS_RTOL = 1e-5
 RL_PARAM_RTOL = 8e-7
 RL_REWARD_BAR = 80
 RL_MAX_ITERS = 40
+# phase 13: the GPU actor's parameters after phase 4's steps against the
+# driver's phase-4 model's, normwise per tensor
+RUNTIME_PARAM_RTOL = 1e-5
+RUNTIME_SKIP_MAIN_MB = 64
+ACTOR_PATH = "gpt2_medium_gpu_actor"
 
 REPLACES = {
     "flash_fwd": "ray_tpu/ops/attention.py:89",
@@ -779,13 +800,16 @@ def moe_active_flops(cfg, n_tokens):
 
 
 def train_path(torch, A, models, smi_name, name, cfg, batches, warmup=2,
-               steps=5, profile_path=None, mesh=None, calls=None):
+               steps=5, profile_path=None, mesh=None, calls=None,
+               tokens=None, params_out=None):
     """Train steps of `cfg` at seq cfg.max_seq_len through GPT ->
     init_train_state -> make_train_step (on `mesh` when given) on tokens
     from a seeded numpy generator: the batch from `batches` (pick_batch
     when there are several), then `warmup` + `steps` steps with the launch
     counts (and the call counts of `calls`, a `counting` dict) set to 0
-    just before and read just after. Returns (counts, result)."""
+    just before and read just after. `tokens` (a CPU tensor) replaces the
+    generated ones; `params_out`, a dict, receives the parameters after
+    the steps as CPU f32 tensors. Returns (counts, result)."""
     from ray_tpu_torch.models.moe import capacity
     from ray_tpu_torch.models.training import flops_per_token
 
@@ -802,8 +826,10 @@ def train_path(torch, A, models, smi_name, name, cfg, batches, warmup=2,
     batch = batches[0]
     if len(batches) > 1:
         batch, tried = pick_batch(torch, step, state, cfg, batches, name)
-    tokens = torch.from_numpy(_tokens(batch, seq, cfg.vocab_size,
-                                      seed=1)).cuda()
+    if tokens is None:
+        tokens = torch.from_numpy(_tokens(batch, seq, cfg.vocab_size,
+                                          seed=1))
+    tokens = tokens.cuda()
     batch_dict = {"tokens": tokens}
     moe = cfg.n_experts > 0
     result = {"batch": batch, "seq": seq, "batches_tried": tried}
@@ -834,6 +860,9 @@ def train_path(torch, A, models, smi_name, name, cfg, batches, warmup=2,
     counts = dict(A.launches)
     if calls is not None:
         result["calls"] = dict(calls)
+    if params_out is not None:
+        params_out.update({n: p.detach().float().cpu()
+                           for n, p in model.named_parameters()})
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     losses = [float(m["loss"]) for m in metrics]
     grad_norms = [float(m["grad_norm"]) for m in metrics]
@@ -1385,6 +1414,241 @@ def rl_ppo_loop(torch, rl, A, smi, by_path, name):
     return out
 
 
+# --- phase 13: the port's runtime on the card --------------------------------
+# The driver makes these remote from the module imported by its name
+# (`import chip_smoke`), never from __main__: a worker imports them by name,
+# whether or not cloudpickle is there to send them by value.
+
+def noop():
+    return os.getpid()
+
+
+def slot_report():
+    """Phase 13(b), in a worker: its GPU slots, CUDA_VISIBLE_DEVICES and
+    what torch sees there."""
+    import torch
+
+    import ray_tpu_torch as rt
+    seen = torch.cuda.is_available()
+    return (rt.get_runtime_context().get_accelerator_ids(),
+            os.environ.get("CUDA_VISIBLE_DEVICES"), seen,
+            torch.cuda.get_device_name(0) if seen else None)
+
+
+class GpuTrainer:
+    """Phase 13's actor (the driver asks for num_gpus=1): phase 4's train
+    path in a worker process of the port's runtime, on the card its slot
+    names; then its parameters back through the object store."""
+
+    def __init__(self):
+        self.params = {}
+
+    def train(self, smi, tokens, profile_path=None):
+        """Phase 4's 2 + 5 steps on `tokens` (a CPU tensor), then two
+        profiled ones when `profile_path` is given. Returns the launch
+        counts, train_path's result and what it printed."""
+        import torch
+
+        from ray_tpu_torch import models
+        from ray_tpu_torch.ops import attention as A
+
+        cfg = models.gpt2_medium(max_seq_len=1024, remat_policy="dots")
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            counts, result = train_path(
+                torch, A, models, smi, ACTOR_PATH, cfg, (tokens.shape[0],),
+                tokens=tokens, params_out=self.params,
+                profile_path=profile_path)
+        return counts, result, printed.getvalue()
+
+    def make_payload(self, mb, seed):
+        """`mb` MB of seeded f32 in place of the parameters (--skip-main)."""
+        import torch
+
+        gen = torch.Generator().manual_seed(seed)
+        self.params = {"payload": torch.randn(mb << 18, generator=gen)}
+
+    def put_params(self):
+        """`put` the parameters; returns [ref], the put's seconds and the
+        tensors' bytes."""
+        import ray_tpu_torch as rt
+
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in self.params.values())
+        t0 = time.perf_counter()
+        ref = rt.put(self.params)
+        return [ref], time.perf_counter() - t0, nbytes
+
+
+def fresh_copy_gb_s(nbytes: int) -> dict:
+    """The host's rates (GB/s) for copying `nbytes` into memory not touched
+    yet, page faults included: into a new anonymous array ("anon"), into a
+    new /dev/shm file ("to_shm", what a put into a new segment does), and
+    from a new mapping of that file into a new array ("from_shm", what a
+    get does). The yardsticks of phase 13's put and get."""
+    import mmap
+
+    import numpy as np
+
+    src = np.ones(nbytes, np.uint8)
+    t0 = time.perf_counter()
+    dst = np.empty_like(src)
+    dst[:] = src
+    rates = {"anon": time.perf_counter() - t0}
+    del dst
+    path = f"/dev/shm/rtpt_yardstick_{os.getpid()}"
+    fd = os.open(path, os.O_CREAT | os.O_EXCL | os.O_RDWR, 0o600)
+    try:
+        os.ftruncate(fd, nbytes)
+        with mmap.mmap(fd, nbytes) as m:
+            view = np.frombuffer(m, np.uint8)
+            t0 = time.perf_counter()
+            view[:] = src
+            rates["to_shm"] = time.perf_counter() - t0
+            del view
+        with mmap.mmap(fd, nbytes) as m:
+            view = np.frombuffer(m, np.uint8)
+            t0 = time.perf_counter()
+            dst = np.empty_like(src)
+            dst[:] = view
+            rates["from_shm"] = time.perf_counter() - t0
+            del view, dst
+    finally:
+        os.close(fd)
+        os.unlink(path)
+    return {k: nbytes / v / 1e9 for k, v in rates.items()}
+
+
+def runtime_phase(torch, smi, by_path, base, driver_params, skip_main,
+                  profile_path=None):
+    """Phase 13: the port's runtime on the card (see the module docstring);
+    `base` is phase 4's result and `driver_params` its parameters after
+    its steps (CPU f32), both None under --skip-main; `profile_path` as
+    train_path's, for the actor's steps."""
+    import chip_smoke as me
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import exceptions
+
+    out = {}
+    t0 = time.perf_counter()
+    rt.init(num_cpus=4)
+    try:
+        out["init_s"] = time.perf_counter() - t0
+        res = rt.cluster_resources()
+        out["resources"] = res
+        t0 = time.perf_counter()
+        rt.get(rt.remote(me.noop).remote(), timeout=300)
+        out["spawn_to_first_task_s"] = time.perf_counter() - t0
+        log(f"runtime: init {out['init_s']:.3f} s, node resources {res}, "
+            f"worker spawn to first task {out['spawn_to_first_task_s']:.3f}"
+            f" s")
+        if res.get("GPU") != torch.cuda.device_count():
+            raise SmokeFailure(f"runtime: GPU resource {res.get('GPU')}, "
+                               f"{torch.cuda.device_count()} device(s)")
+
+        # (b) which tasks see the card
+        report = rt.remote(me.slot_report)
+        gpu = rt.get(report.options(num_gpus=1).remote(), timeout=300)
+        cpu = rt.get(report.remote(), timeout=300)
+        out["slots"] = {"gpu_task": gpu, "cpu_task": cpu}
+        log(f"runtime: num_gpus=1 task {gpu}; task without a slot {cpu}")
+        name = torch.cuda.get_device_name(0)
+        if gpu != ({"GPU": [0]}, "0", True, name):
+            raise SmokeFailure(f"runtime: num_gpus=1 task sees {gpu}")
+        if cpu != ({"GPU": []}, "", False, None):
+            raise SmokeFailure(f"runtime: a task without a slot sees {cpu}")
+
+        trainer = rt.remote(num_gpus=1)(me.GpuTrainer).remote()
+        if skip_main:
+            by_path[ACTOR_PATH] = {k: None for k in by_path["gpt2_medium"]}
+            rt.get(trainer.make_payload.remote(RUNTIME_SKIP_MAIN_MB, 0),
+                   timeout=300)
+            gen = torch.Generator().manual_seed(0)
+            driver_params = {"payload": torch.randn(
+                RUNTIME_SKIP_MAIN_MB << 18, generator=gen)}
+        else:
+            # (c) the main path inside the GPU actor, on phase 4's tokens
+            from ray_tpu_torch import models
+            cfg = models.gpt2_medium(max_seq_len=1024, remat_policy="dots")
+            tokens = torch.from_numpy(_tokens(base["batch"], base["seq"],
+                                              cfg.vocab_size, seed=1))
+            t0 = time.perf_counter()
+            counts, result, printed = rt.get(
+                trainer.train.remote(smi, rt.put(tokens), profile_path),
+                timeout=900)
+            result["call_s"] = time.perf_counter() - t0
+            for ln in printed.splitlines():
+                log(f"  (actor) {ln}")
+            by_path[ACTOR_PATH] = counts
+            out["train"] = result
+            loss_err = (abs(result["losses"][0] - base["losses"][0])
+                        / abs(base["losses"][0]))
+            gn_err = (abs(result["grad_norms"][0] - base["grad_norms"][0])
+                      / abs(base["grad_norms"][0]))
+            bit_equal = result["losses"] == base["losses"]
+            out.update({"first_loss_rel_err": loss_err,
+                        "first_grad_norm_rel_err": gn_err,
+                        "losses_bit_equal": bit_equal})
+            log(f"{ACTOR_PATH}: beside gpt2_medium (phase 4): step "
+                f"{result['step_ms']:.1f} ms against {base['step_ms']:.1f} ms, "
+                f"call {result['call_s']:.1f} s; first loss rel err "
+                f"{loss_err:.2e} (<= {FSDP_LOSS_RTOL:.0e}), grad norm "
+                f"{gn_err:.2e} (<= {FSDP_GRAD_NORM_RTOL:.0e}); all 7 losses "
+                f"equal to phase 4's bit for bit: {bit_equal}; launches "
+                f"{counts} (phase 4: {by_path['gpt2_medium']}) ({smi})")
+            if counts != by_path["gpt2_medium"]:
+                raise SmokeFailure(f"{ACTOR_PATH}: launches {counts}, phase "
+                                   f"4 {by_path['gpt2_medium']}")
+            if loss_err > FSDP_LOSS_RTOL or gn_err > FSDP_GRAD_NORM_RTOL:
+                raise SmokeFailure(f"{ACTOR_PATH}: the first step disagrees "
+                                   "with phase 4's")
+
+        # (d) the parameters back through the store
+        [ref], put_s, nbytes = rt.get(trainer.put_params.remote(),
+                                      timeout=600)
+        t0 = time.perf_counter()
+        params = rt.get(ref, timeout=600)
+        get_s = time.perf_counter() - t0
+        errs = {n: float((params[n] - p).norm() / p.norm().clamp_min(1e-30))
+                for n, p in driver_params.items()}
+        worst = max(errs, key=errs.get)
+        bit_equal = (params.keys() == driver_params.keys() and all(
+            torch.equal(params[n], p) for n, p in driver_params.items()))
+        shm = os.statvfs("/dev/shm")
+        stats = rt._global_node.store.stats()
+        host_gb_s = fresh_copy_gb_s(nbytes)
+        out["params"] = {
+            "bytes": nbytes, "tensors": len(params), "put_s": put_s,
+            "get_s": get_s, "put_gb_s": nbytes / put_s / 1e9,
+            "get_gb_s": nbytes / get_s / 1e9,
+            "host_copy_gb_s": host_gb_s, "max_rel_err": errs[worst],
+            "worst": worst, "bit_equal": bit_equal,
+            "dev_shm_bytes": shm.f_frsize * shm.f_blocks,
+            "spilled_bytes": stats["spilled_bytes_total"]}
+        log(f"runtime: {len(params)} tensors, {nbytes / 1e9:.3f} GB (CPU "
+            f"f32) put by the actor in {put_s:.3f} s "
+            f"({nbytes / put_s / 1e9:.2f} GB/s), got by the driver in "
+            f"{get_s:.3f} s ({nbytes / get_s / 1e9:.2f} GB/s); the host copies "
+            f"the same bytes at {host_gb_s['anon']:.2f} GB/s into fresh "
+            f"memory, {host_gb_s['to_shm']:.2f} into a fresh /dev/shm file, "
+            f"{host_gb_s['from_shm']:.2f} from a fresh mapping of it; max "
+            f"normwise "
+            f"rel err {errs[worst]:.2e} ({worst}, <= {RUNTIME_PARAM_RTOL:.0e})"
+            f", bit-equal: {bit_equal}; /dev/shm "
+            f"{out['params']['dev_shm_bytes'] / 2**30:.1f} GiB, spilled "
+            f"{stats['spilled_bytes_total']} bytes ({smi})")
+        if params.keys() != driver_params.keys():
+            raise SmokeFailure("runtime: the parameters' names differ")
+        if errs[worst] > RUNTIME_PARAM_RTOL:
+            raise SmokeFailure(f"runtime: parameters {worst} off by "
+                               f"{errs[worst]:.2e}")
+    except exceptions.RayTpuError as exc:
+        raise SmokeFailure(f"runtime: {type(exc).__name__}: {exc}") from exc
+    finally:
+        rt.shutdown()     # (e)
+    return out
+
+
 def run(args) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1478,13 +1742,15 @@ def run(args) -> int:
                                          remat_policy="dots"), MOE_BATCHES),
     }
     by_path, main = {}, {}
+    driver_params = {}   # phase 4's parameters after its steps, for phase 13
     for name, (cfg, batches) in paths.items():
         if args.skip_main:
             by_path[name] = {k: None for k in A.launches}
             continue
         by_path[name], main[name] = train_path(
             torch, A, models, smi, name, cfg, batches,
-            profile_path=args.profile)
+            profile_path=args.profile,
+            params_out=driver_params if name == "gpt2_medium" else None)
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -1540,6 +1806,14 @@ def run(args) -> int:
               "ppo_loop": rl_ppo_loop(torch, rl, A, smi, by_path,
                                       "rl_ppo_cartpole")}
 
+    # phase 13: the port's runtime on the card; the main path inside a GPU
+    # actor, beside phase 4 (its steps skipped under --skip-main)
+    gc.collect()
+    torch.cuda.empty_cache()
+    runtime = runtime_phase(torch, smi, by_path, main.get("gpt2_medium"),
+                            driver_params or None, args.skip_main,
+                            args.profile)
+
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name],
                 "launches": by_path["gpt2_medium"][name],
@@ -1557,7 +1831,7 @@ def run(args) -> int:
                        "readings": {k: r["readings"]
                                     for k, r in results.items()},
                        "model_check": model, "ring": ring,
-                       "main": main, "rl": rl_out},
+                       "main": main, "rl": rl_out, "runtime": runtime},
                       f, indent=1)
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -15,6 +15,26 @@ ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "ray_tpu_torch"
 
 
+# the runtime's modules: the port's own copy of ray_tpu's core runtime
+RUNTIME_MODULES = (
+    "api", "cluster_utils", "exceptions", "runtime_context", "dag", "state",
+    "util", "util.placement_group", "util.scheduling_strategies",
+    "util.queue", "util.actor_pool", "util.tracing", "util.tqdm_ray",
+    *(f"_private.{m}" for m in (
+        "client", "coll_transport", "config", "context", "debug_bundle",
+        "debugging", "events", "failpoints", "fieldsan", "flight_recorder",
+        "gcs", "gcs_service", "gcs_storage", "history", "ids", "locksan",
+        "memory_monitor", "native", "node", "object_ref", "object_store",
+        "protocol", "rpc", "runtime_env", "scheduler", "serialization",
+        "telemetry", "worker", "worker_bootstrap")),
+)
+# ray_tpu layers a copied module reaches lazily and the port does not have
+# yet: importing one fails as for any missing module
+NOT_PORTED = {
+    "ray_tpu_torch.serve.api._CONTROLLER_NAME",   # state/api.py's serve rows
+}
+
+
 def _py_files():
     # the package, the chip scripts, and the module the gloo test ranks run
     return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
@@ -33,7 +53,8 @@ def test_import_leaves_jax_and_ray_tpu_out():
             "ray_tpu_torch.rl.env, ray_tpu_torch.rl.sample_batch, "
             "ray_tpu_torch.rl.replay_buffers, ray_tpu_torch.rl.module, "
             "ray_tpu_torch.rl.convert, ray_tpu_torch.rl.learner, "
-            "ray_tpu_torch.rl.dqn, ray_tpu_torch.rl.vector_env; "
+            "ray_tpu_torch.rl.dqn, ray_tpu_torch.rl.vector_env, "
+            + ", ".join(f"ray_tpu_torch.{m}" for m in RUNTIME_MODULES) + "; "
             "sys.path.insert(0, 'tests'); import torch_dist_worker; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ray_tpu', 'optax', 'triton')]; "
@@ -43,6 +64,69 @@ def test_import_leaves_jax_and_ray_tpu_out():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_runtime_import_is_light():
+    """The package and the runtime a worker process runs import no torch,
+    JAX or ray_tpu: the ML subpackages load on first attribute access."""
+    code = ("import sys, ray_tpu_torch, ray_tpu_torch._private.node, "
+            "ray_tpu_torch._private.worker; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'ray_tpu', 'torch')]; print(bad); "
+            "import ray_tpu_torch as rt; rt.models, rt.rl; "
+            "from ray_tpu_torch import ops, parallel; "
+            "sys.exit(1 if bad or 'torch' not in sys.modules else 0)")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _module_file(parts):
+    path = ROOT.joinpath(*parts)
+    for cand in (path.with_suffix(".py"), path / "__init__.py"):
+        if cand.is_file():
+            return cand
+    return None
+
+
+def _defined_names(path):
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Name) and isinstance(node.ctx, ast.Store):
+            names.add(node.id)
+        elif isinstance(node, (ast.Import, ast.ImportFrom)):
+            names.update((a.asname or a.name).split(".")[0]
+                         for a in node.names)
+    return names
+
+
+def test_relative_imports_resolve():
+    """Every relative import in the package, lazy ones included, names a
+    module or a name of the port's own, except the layers NOT_PORTED lists:
+    a missed copy fails here, not at run time."""
+    missing = set()
+    for path in sorted(PKG.rglob("*.py")):
+        parts = list(path.relative_to(ROOT).with_suffix("").parts)
+        pkg = parts[:-1]
+        for node in ast.walk(ast.parse(path.read_text())):
+            if not (isinstance(node, ast.ImportFrom) and node.level):
+                continue
+            base = pkg[:len(pkg) - node.level + 1]
+            base += node.module.split(".") if node.module else []
+            base_file = _module_file(base)
+            for alias in node.names:
+                if _module_file(base + [alias.name]) is not None:
+                    continue
+                if (base_file is not None
+                        and alias.name in _defined_names(base_file)):
+                    continue
+                missing.add(".".join(base + [alias.name]))
+    assert missing == NOT_PORTED
 
 
 @pytest.mark.parametrize("path", _py_files(), ids=lambda p: p.name)

@@ -1,0 +1,187 @@
+"""ray_tpu_torch's runtime and the GPU: exclusive "GPU" slots and the
+CUDA_VISIBLE_DEVICES each worker sees (no card is needed: the slots are a
+resource of the node), pooled workers that keep their role, the light
+worker process, and the device telemetry on the card."""
+
+import pytest
+import torch
+
+import ray_tpu_torch as rt
+import torch_runtime_tasks as T
+from ray_tpu_torch import exceptions
+
+NAME = rt.__name__
+
+
+@pytest.fixture(scope="module", autouse=True)
+def port_sanitizers_clean():
+    """conftest reports only ray_tpu's sanitizers: hold the port's here."""
+    yield
+    from ray_tpu_torch._private import fieldsan, locksan
+    assert locksan.violations() == []
+    assert fieldsan.violations() == []
+
+
+@pytest.fixture
+def runtime(request):
+    rt.init(**request.param)
+    yield
+    rt.shutdown()
+
+
+@pytest.mark.parametrize("runtime", [{"num_cpus": 4, "num_gpus": 2}],
+                         indirect=True)
+def test_gpu_slot_assignment(runtime):
+    """Whole-card demands get exclusive per-instance slot ids, and the
+    task's CUDA_VISIBLE_DEVICES names them (a port of
+    test_core_basic.py's test_accelerator_slot_assignment)."""
+    assert rt.cluster_resources() == {"CPU": 4.0, "GPU": 2.0}
+    # two holders at once get disjoint slots (actors hold theirs for their
+    # lifetime; two tasks may also run one after the other on slot 0's
+    # warm worker, where ray_tpu's pool would hand the second any worker)
+    holders = [rt.remote(T.Slots).options(num_gpus=1).remote()
+               for _ in range(2)]
+    held = rt.get([h.ids.remote(NAME) for h in holders], timeout=60)
+    assert sorted(ids["GPU"][0] for ids, _ in held) == [0, 1]
+    for ids, visible in held:
+        assert visible == str(ids["GPU"][0])
+    for h in holders:
+        rt.kill(h)
+
+    one = rt.remote(T.slots).options(num_gpus=1)
+
+    # slots recycle once released
+    ids, visible = rt.get(one.remote(NAME), timeout=60)
+    assert ids["GPU"] in ([0], [1]) and visible == str(ids["GPU"][0])
+
+    # a two-card task owns both, and sees both
+    both = rt.get(rt.remote(T.slots).options(num_gpus=2).remote(NAME),
+                  timeout=60)
+    assert sorted(both[0]["GPU"]) == [0, 1]
+    assert sorted(both[1].split(",")) == ["0", "1"]
+
+    # actors hold their slots for their lifetime
+    holder = rt.remote(T.Slots).options(num_gpus=1).remote()
+    held, held_visible = rt.get(holder.ids.remote(NAME), timeout=60)
+    assert held["GPU"] in ([0], [1]) and held_visible == str(held["GPU"][0])
+    # with one card held, a 1-card task gets the other id
+    other, _ = rt.get(one.remote(NAME), timeout=60)
+    assert other != held and other["GPU"] in ([0], [1])
+
+    # no slots: no card
+    assert rt.get(rt.remote(T.slots).remote(NAME), timeout=60) == (
+        {"GPU": []}, "")
+    # driver context: no slots
+    assert rt.get_runtime_context().get_accelerator_ids() == {"GPU": []}
+
+    # fractional GPU demands are capacity-only (no slot, no card), and
+    # more than one card must be whole
+    frac = rt.get(rt.remote(T.slots).options(num_gpus=0.5).remote(NAME),
+                  timeout=60)
+    assert frac == ({"GPU": []}, "")
+    with pytest.raises(ValueError):
+        rt.remote(T.slots).options(num_gpus=1.5).remote(NAME)
+
+
+@pytest.mark.parametrize("runtime", [{"num_cpus": 1, "num_gpus": 1}],
+                         indirect=True)
+def test_pooled_worker_keeps_its_role(runtime):
+    """Torch reads CUDA_VISIBLE_DEVICES once, at CUDA's first use: a worker
+    that touched torch.cuda without a slot never serves a GPU task, and a
+    GPU worker never serves a slot-less one, even on one CPU."""
+    probe = rt.remote(T.cuda_probe)
+    available, visible, cpu_pid = rt.get(probe.remote(), timeout=60)
+    assert (available, visible) == (False, "")
+
+    ids, visible = rt.get(rt.remote(T.slots).options(num_gpus=1).remote(
+        NAME), timeout=60)
+    assert ids == {"GPU": [0]} and visible == "0"
+    _, visible, gpu_pid = rt.get(probe.options(num_gpus=1).remote(),
+                                 timeout=60)
+    assert visible == "0" and gpu_pid != cpu_pid
+
+    _, visible, pid = rt.get(probe.remote(), timeout=60)
+    assert visible == "" and pid != gpu_pid
+
+
+@pytest.mark.parametrize("runtime", [{"num_cpus": 1}], indirect=True)
+def test_tensor_free_worker_stays_light(runtime):
+    """A worker that ran only tensor-free tasks (from a module that imports
+    neither torch nor jax) has imported neither."""
+    add = rt.remote(T.add)
+    assert rt.get(add.remote(rt.put(1), add.remote(2, 3))) == 6
+    import numpy as np
+    big = rt.put(np.ones(1 << 18))
+    assert rt.get(rt.remote(T.echo).remote(big)).sum() == 1 << 18
+    assert rt.get(rt.remote(T.heavy_modules).remote(), timeout=60) == []
+
+
+@pytest.mark.parametrize("runtime", [{"num_cpus": 2, "num_tpus": 1}],
+                         indirect=True)
+def test_num_tpus_means_gpus(runtime):
+    assert rt.cluster_resources()["GPU"] == 1.0
+    ids, visible = rt.get(rt.remote(T.slots).options(num_tpus=1).remote(
+        NAME), timeout=60)
+    assert ids == {"GPU": [0]} and visible == "0"
+
+
+def test_cluster_add_node_num_gpus():
+    from ray_tpu_torch.cluster_utils import Cluster
+
+    with pytest.raises(NotImplementedError, match="main"):
+        Cluster(process_isolated=True)
+    cluster = Cluster(head_node_args={"num_cpus": 1})
+    try:
+        cluster.add_node(num_cpus=1, num_gpus=2)
+        rt.init(address=cluster)
+        try:
+            assert rt.cluster_resources() == {"CPU": 2.0, "GPU": 2.0}
+            ids, visible = rt.get(
+                rt.remote(T.slots).options(num_gpus=2).remote(NAME),
+                timeout=60)
+            assert sorted(ids["GPU"]) == [0, 1] and visible in ("0,1", "1,0")
+        finally:
+            rt.shutdown()
+    finally:
+        cluster.shutdown()
+
+
+@pytest.mark.cuda
+def test_sample_devices_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    from ray_tpu_torch._private import telemetry
+
+    x = torch.ones(1 << 20, device="cuda")
+    assert telemetry.sample_devices() == torch.cuda.device_count()
+    gauges = telemetry.snapshot_local()["gauges"]
+    tags = (("device", "cuda:0"),)
+    used = gauges[(telemetry.M_HBM_USED, tags)][0]
+    limit = gauges[(telemetry.M_HBM_LIMIT, tags)][0]
+    assert x.numel() * 4 <= used <= limit
+
+
+def test_sample_devices_without_cuda_initialised():
+    """Sampling never initialises CUDA (nor raises) where torch has not."""
+    from ray_tpu_torch._private import telemetry
+
+    if torch.cuda.is_initialized():
+        pytest.skip("CUDA is initialised in this process")
+    assert telemetry.sample_devices() == 0
+    assert not torch.cuda.is_initialized()
+
+
+def test_cuda_tensor_record_fails_a_task_without_a_card():
+    """A CUDA tensor sent to a task without a slot fails that task with
+    the named error; it never lands on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this checks the behaviour without CUDA")
+    from test_torch_runtime import _cuda_record
+
+    rt.init(num_cpus=1)
+    try:
+        ref = rt.put({"w": _cuda_record(torch.ones(4))})
+        with pytest.raises(exceptions.RayTpuError, match="cuda:0"):
+            rt.get(rt.remote(T.echo).remote(ref), timeout=60)
+    finally:
+        rt.shutdown()
