@@ -78,12 +78,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
     V-trace on [2, 64] fragments with bootstrap_obs, DQN over 5 updates of
     64 rows at target_update_freq 2 (two target syncs); stats within
     RL_STATS_RTOL, parameters within RL_PARAM_RTOL, ms per update on each;
-    then JAX's PPO learning test in one process (2 env runners sampling on
-    the CPU, 512 steps each, 10 epochs of 256-row minibatches, the learner
-    on the card), which fails unless the best episode_reward_mean reaches
-    RL_REWARD_BAR within RL_MAX_ITERS iterations; prints the iterations,
-    env steps/s and the learner's ms per update on the card (CUDA events)
-    and on the CPU;
+    then JAX's PPO learning test on the port's runtime
+    (``PPOConfig().learners(1)``: the learner in an actor with
+    ``num_gpus=1``, 2 env runner actors sampling on the CPU, 512 steps
+    each, 10 epochs of 256-row minibatches), which fails unless the best
+    episode_reward_mean reaches RL_REWARD_BAR within RL_MAX_ITERS
+    iterations; prints the iterations, env steps/s and the learner actor's
+    ms per update beside (a)'s on the card and on the CPU;
 13. the port's runtime on the card: ``ray_tpu_torch.init(num_cpus=4)``
     counts the card as the node's "GPU" resource; a ``num_gpus=1`` task
     sees ``{"GPU": [0]}``, ``CUDA_VISIBLE_DEVICES=0`` and the card, a task
@@ -96,12 +97,26 @@ Phases, each fatal on failure (non-zero exit, no result line):
     each tensor to its own phase-4 model's within RUNTIME_PARAM_RTOL
     normwise; put and get seconds and GB/s, the bytes spilled and
     ``/dev/shm``'s size. Under ``--skip-main`` the actor puts 64 MB of
-    seeded data instead, and runs no step.
+    seeded data instead, and runs no step;
+14. the gang trainer: ``TorchTrainer`` with ``ScalingConfig(num_workers=1,
+    use_gpu=True, mesh=MeshSpec(dp=1, fsdp=1))`` on
+    ``ray_tpu_torch.init(num_cpus=4)``: its worker joins a one-rank NCCL
+    group (a FileStore in the experiment directory) and runs phase 4's
+    gpt2_medium (same seed-0 weights and tokens, 2 + 5 steps) through the
+    process-mesh path, with a sharded checkpoint
+    (``torch.distributed.checkpoint``) after step 3; then a second run
+    whose loop raises once after that checkpoint and whose restart resumes
+    from it. Fails unless the launches per step equal phase 4's, the first
+    loss and grad norm match phase 4's (FSDP_LOSS_RTOL,
+    FSDP_GRAD_NORM_RTOL) and the resumed steps 4-7 equal the uninterrupted
+    run's bit for bit; prints the losses beside phase 4's, the step ms
+    (device busy under ``--profile``) and the checkpoint's save and restore
+    seconds and bytes.
 
 ``--profile PATH`` profiles two more steps of each train path and writes
 one table per path (PATH with the path's name before its suffix);
-``--skip-main`` skips the train paths, phases 4-6 and 8-11, and phase
-13's steps. Prints the
+``--skip-main`` skips the train paths, phases 4-6, 8-11 and 14, and
+phase 13's steps. Prints the
 kernels as one JSON line, then the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when
 CUDA is missing or the package is not beside this script.
@@ -183,6 +198,11 @@ RL_MAX_ITERS = 40
 RUNTIME_PARAM_RTOL = 1e-5
 RUNTIME_SKIP_MAIN_MB = 64
 ACTOR_PATH = "gpt2_medium_gpu_actor"
+# phase 14: the gang trainer, phase 4's 2 + 5 steps with a sharded
+# checkpoint after step GANG_CKPT_AT and one injected failure after it
+GANG_PATH = "gpt2_medium_gang"
+GANG_STEPS = 7
+GANG_CKPT_AT = 3
 
 REPLACES = {
     "flash_fwd": "ray_tpu/ops/attention.py:89",
@@ -815,13 +835,21 @@ def train_path(torch, A, models, smi_name, name, cfg, batches, warmup=2,
 
     seq = cfg.max_seq_len
     t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     model = models.GPT(cfg, seed=0, mesh=mesh)
+    torch.cuda.synchronize()
+    build_peak_gib = (torch.cuda.max_memory_allocated() - held) / 2**30
+    param_gib = sum(p.numel() * p.element_size()
+                    for p in model.parameters()) / 2**30
     opt = models.make_optimizer(total_steps=steps + warmup)
     state = models.init_train_state(model, opt, mesh=mesh)
     step = models.make_train_step(model, opt, mesh=mesh)
     torch.cuda.synchronize()
     log(f"{name}: {cfg.n_params / 1e6:.1f}M params built in "
-        f"{time.perf_counter() - t0:.1f}s")
+        f"{time.perf_counter() - t0:.1f}s; peak memory while GPT() built "
+        f"them {build_peak_gib:.2f} GiB, the parameters {param_gib:.2f} GiB")
     tried = None
     batch = batches[0]
     if len(batches) > 1:
@@ -832,7 +860,8 @@ def train_path(torch, A, models, smi_name, name, cfg, batches, warmup=2,
     tokens = tokens.cuda()
     batch_dict = {"tokens": tokens}
     moe = cfg.n_experts > 0
-    result = {"batch": batch, "seq": seq, "batches_tried": tried}
+    result = {"batch": batch, "seq": seq, "batches_tried": tried,
+              "build_peak_gib": build_peak_gib, "param_gib": param_gib}
     if mesh is not None and not mesh.loopback:
         from torch.distributed.tensor import DTensor
         params = list(model.parameters())
@@ -1056,6 +1085,12 @@ def fsdp_tp_path(torch, A, models, smi, cfg, base, name, by_path, profile):
                first_grad_norm_rel=norm_rel)
     log(f"{name}: FSDP2 DTensor parameters {out['dtensor_params']}; calls "
         f"per step {got} (expected {want})")
+    log(f"{name}: peak memory while GPT() built the rank's shards "
+        f"{out['build_peak_gib']:.2f} GiB for {out['param_gib']:.2f} GiB of "
+        f"parameters (each tensor cut as it is drawn: its shards and one "
+        f"full tensor); drawing every full tensor and then slicing, as the "
+        f"build did before, holds both at once: "
+        f"{2 * out['param_gib']:.2f} GiB, computed ({smi})")
     log(f"{name}: beside llama_1b (phase 5), batch {base['batch']}: step "
         f"{out['step_ms']:.1f} ms ({base['step_ms']:.1f}), "
         f"{out['tokens_per_s']:.0f} tokens/s ({base['tokens_per_s']:.0f}), "
@@ -1336,79 +1371,74 @@ def rl_learner_check(torch, rl, smi):
     return out
 
 
-def rl_ppo_loop(torch, rl, A, smi, by_path, name):
-    """Phase 12(b): JAX's PPO learning test (tests/test_rl.py:84-106) in one
-    process: 2 env runners on the CPU, the learner on the card, the loop of
-    ray_tpu/rl/ppo.py's train, until the best episode_reward_mean reaches
-    RL_REWARD_BAR or RL_MAX_ITERS iterations pass."""
-    import numpy as np
+def rl_ppo_loop(torch, rl, smi, by_path, name, learner_ms):
+    """Phase 12(b): JAX's PPO learning test (tests/test_rl.py:84-106) on the
+    port's runtime: ``PPOConfig().learners(1)``, the learner in an actor
+    with ``num_gpus=1`` (the card), 2 env runners as actors sampling on the
+    CPU, until the best episode_reward_mean reaches RL_REWARD_BAR or
+    RL_MAX_ITERS iterations pass. Prints the learner's ms per update
+    (host clock around the iteration's updates, each a call of the actor)
+    beside phase 12(a)'s on the card and the CPU (`learner_ms`)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import exceptions
 
-    cfg = {"observation_size": RL_OBS, "action_size": RL_ACTIONS,
-           "hidden": RL_HIDDEN}
-    learner = rl.Learner(rl.DiscretePolicyModule(**cfg), lr=1e-3,
-                         entropy_coeff=0.01)
-    runners = [rl.EnvRunner(rl.CartPoleEnv, cfg, seed=i * 1000,
-                            device="cpu") for i in range(2)]
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    best, rewards_by_iter = -math.inf, []
-    sample_s = update_ms = 0.0
-    steps = updates = 0
-    A.reset_launch_counts()
-    t_loop = time.perf_counter()
-    for iteration in range(RL_MAX_ITERS):
-        weights = learner.get_weights()
-        t0 = time.perf_counter()
-        results = [r.sample(weights, 512) for r in runners]
-        sample_s += time.perf_counter() - t0
-        steps += 512 * len(runners)
-        batch = rl.concat_batches([rl.SampleBatch(b) for b, _ in results])
-        start.record()
-        for _ in range(10):
-            for mb in batch.shuffle(seed=iteration).minibatches(256):
-                stats = learner.update(mb)
-                updates += 1
-        end.record()
-        end.synchronize()
-        update_ms += start.elapsed_time(end)
-        rewards = [s["episode_reward_mean"] for _, s in results
-                   if not math.isnan(s["episode_reward_mean"])]
-        if rewards:
-            best = max(best, float(np.mean(rewards)))
-        rewards_by_iter.append(float(np.mean(rewards)) if rewards
-                               else None)
-        if best >= RL_REWARD_BAR:
-            break
-    loop_s = time.perf_counter() - t_loop
-    by_path[name] = dict(A.launches)
-    # the same learner's update on the CPU, as a yardstick: the last
-    # iteration's minibatches from the same weights
-    cpu = rl.Learner(rl.DiscretePolicyModule(**cfg), lr=1e-3,
-                     entropy_coeff=0.01, device="cpu")
-    cpu.set_weights(learner.get_weights())
-    mbs = list(batch.shuffle(seed=0).minibatches(256))
-    t0 = time.perf_counter()
-    for _ in range(10):
-        for mb in mbs:
-            cpu.update(mb)
-    cpu_ms = (time.perf_counter() - t0) / (10 * len(mbs)) * 1e3
+    rt.init(num_cpus=4)
+    try:
+        algo = (rl.PPOConfig()
+                .environment(rl.CartPoleEnv)
+                .rollouts(num_rollout_workers=2,
+                          rollout_fragment_length=512)
+                .training(num_sgd_iter=10, sgd_minibatch_size=256,
+                          lr=1e-3, entropy_coeff=0.01)
+                .learners(1)
+                .build())
+        best, rewards_by_iter = -math.inf, []
+        learner_s = steps = updates = 0
+        # the learner's process launches whatever kernels the path takes:
+        # its counts, set to 0 there just before the loop
+        algo.learner.kernel_launches(reset=True)
+        t_loop = time.perf_counter()
+        for iteration in range(RL_MAX_ITERS):
+            result = algo.train()
+            learner_s += result["time_learner_s"]
+            updates += result["num_learner_updates"]
+            steps += result["num_env_steps_sampled"]
+            r = result["episode_reward_mean"]
+            rewards_by_iter.append(None if math.isnan(r) else r)
+            if not math.isnan(r):
+                best = max(best, r)
+            if best >= RL_REWARD_BAR:
+                break
+        loop_s = time.perf_counter() - t_loop
+        by_path[name] = algo.learner.kernel_launches()
+        algo.stop()
+    except exceptions.RayTpuError as exc:
+        raise SmokeFailure(f"rl ppo: {type(exc).__name__}: {exc}") from exc
+    finally:
+        rt.shutdown()
+    update_ms = learner_s / updates * 1e3
     out = {"iterations": iteration + 1, "best_reward": best,
            "rewards": rewards_by_iter, "env_steps": steps,
-           "env_steps_per_s": steps / sample_s, "updates": updates,
-           "update_ms": update_ms / updates, "cpu_update_ms": cpu_ms,
-           "loop_s": loop_s, "last_stats": stats}
-    log(f"rl ppo loop (CartPole, 2 runners on the CPU x 512 steps, learner "
-        f"on the card): {iteration + 1} iterations, best "
-        f"episode_reward_mean {best:.2f} (bar {RL_REWARD_BAR}), rewards "
+           "updates": updates, "update_ms": update_ms,
+           "phase12a_update_ms": learner_ms, "loop_s": loop_s,
+           "last_stats": {k: v for k, v in result.items()
+                          if k.startswith("learner/")}}
+    log(f"rl ppo (PPOConfig().learners(1): the learner in a num_gpus=1 "
+        f"actor, 2 runner actors on the CPU x 512 steps): {iteration + 1} "
+        f"iterations, best episode_reward_mean {best:.2f} (bar "
+        f"{RL_REWARD_BAR}), rewards "
         f"{[None if r is None else round(r, 2) for r in rewards_by_iter]}")
-    log(f"rl ppo loop: {steps / sample_s:.1f} env steps/s sampling, "
-        f"{updates} updates at {update_ms / updates:.4f} ms each on the card "
-        f"(CUDA events) against {cpu_ms:.4f} ms on the CPU, loop "
-        f"{loop_s:.1f} s ({smi}); flash launches {by_path[name]}")
-    if not math.isfinite(stats["total_loss"]):
-        raise SmokeFailure(f"rl ppo loop: loss not finite {stats}")
+    log(f"rl ppo: {updates} updates at {update_ms:.4f} ms each through the "
+        f"learner actor (host clock, the call included) beside phase "
+        f"12(a)'s {learner_ms['ms']:.4f} ms on the card and "
+        f"{learner_ms['cpu_ms']:.4f} ms on the CPU in process; "
+        f"{steps / loop_s:.1f} env steps/s over the loop of {loop_s:.1f} s "
+        f"({smi}); flash launches in the learner actor {by_path[name]}")
+    loss = out["last_stats"].get("learner/total_loss", math.nan)
+    if not math.isfinite(loss):
+        raise SmokeFailure(f"rl ppo: loss not finite {out['last_stats']}")
     if best < RL_REWARD_BAR:
-        raise SmokeFailure(f"rl ppo loop: best episode_reward_mean {best} "
+        raise SmokeFailure(f"rl ppo: best episode_reward_mean {best} "
                            f"< {RL_REWARD_BAR} after {iteration + 1} "
                            "iterations")
     return out
@@ -1649,6 +1679,211 @@ def runtime_phase(torch, smi, by_path, base, driver_params, skip_main,
     return out
 
 
+# --- phase 14: the gang trainer on the card ----------------------------------
+
+def gang_loop(config):
+    """Phase 14's ``train_loop_per_worker``, in the gang's worker (one GPU
+    slot, one NCCL rank): phase 4's gpt2_medium on phase 4's seed-0
+    weights and tokens through the process-mesh path of
+    ``build_mesh(MeshSpec(**config["mesh"]))``, resumed from the session's
+    checkpoint when there is one; a sharded checkpoint after step
+    ``ckpt_at``; on the first attempt of a run with ``fail`` an injected
+    error after that checkpoint. Each step reports its loss, grad norm and
+    host ms; the last also the launch counts of this attempt's steps (set
+    to 0 just before them), and two profiled steps when asked."""
+    import torch
+
+    from ray_tpu_torch import models, train
+    from ray_tpu_torch.ops import attention as A
+    from ray_tpu_torch.parallel import MeshSpec, build_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctx = train.get_context()
+    cfg = models.gpt2_medium(max_seq_len=1024, remat_policy="dots")
+    mesh = build_mesh(MeshSpec(**config["mesh"]), device_type="cuda")
+    model = models.GPT(cfg, seed=0, mesh=mesh)
+    opt = models.make_optimizer(total_steps=config["steps"])
+    state = models.init_train_state(model, opt, mesh=mesh)
+    step = models.make_train_step(model, opt, mesh=mesh)
+    restore_s = None
+    resume = train.get_checkpoint()
+    if resume is not None:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        resume.to_state_dict(template=state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    tokens = torch.from_numpy(_tokens(config["batch"], cfg.max_seq_len,
+                                      cfg.vocab_size, seed=1)).cuda()
+    batch = {"tokens": tokens}
+    first = state.step
+    torch.cuda.synchronize()
+    A.reset_launch_counts()
+    while state.step < config["steps"]:
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        info = {"step": state.step, "loss": float(m["loss"]),
+                "grad_norm": float(m["grad_norm"]),
+                "step_ms": (time.perf_counter() - t0) * 1e3,
+                "attempt": ctx.attempt, "restore_s": restore_s}
+        ckpt = None
+        if state.step == config["ckpt_at"]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ckpt = train.Checkpoint.from_state_dict(state)
+            info["save_s"] = time.perf_counter() - t0
+            info["ckpt_bytes"] = sum(
+                f.stat().st_size for f in Path(ckpt.path).rglob("*")
+                if f.is_file())
+        if state.step == config["steps"]:
+            info["launches"] = dict(A.launches)
+            info["steps_counted"] = state.step - first
+            if config["profile"]:
+                def one_step():
+                    nonlocal state
+                    state, _ = step(state, batch)
+
+                path = Path(config["profile"])
+                info["profile"] = profile_steps(
+                    torch, one_step,
+                    path.with_name(f"{path.stem}.{GANG_PATH}{path.suffix}"),
+                    info["step_ms"])
+        train.report(info, checkpoint=ckpt)
+        if (config["fail"] and ctx.attempt == 0
+                and state.step == config["ckpt_at"]):
+            raise RuntimeError("injected failure after the step-"
+                               f"{state.step} checkpoint")
+
+
+def gang_phase(torch, smi, by_path, base, profile_path=None):
+    """Phase 14: ``TorchTrainer`` on the card (see the module docstring):
+    an uninterrupted gang run and one failed after its step-3 checkpoint
+    and resumed from it, each on a one-worker NCCL gang; `base` is phase
+    4's result."""
+    import tempfile
+
+    import chip_smoke as me
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import exceptions
+    from ray_tpu_torch.parallel import MeshSpec
+    from ray_tpu_torch.train import (CheckpointConfig, FailureConfig,
+                                     RunConfig, ScalingConfig, TorchTrainer)
+
+    spec = dict(dp=1, fsdp=1)
+    storage = tempfile.mkdtemp(prefix="chip_smoke_gang_")
+    out = {}
+    rt.init(num_cpus=4)
+    try:
+        for run_name, fail in (("whole", False), ("resumed", True)):
+            config = {"mesh": spec, "steps": GANG_STEPS,
+                      "ckpt_at": GANG_CKPT_AT, "batch": base["batch"],
+                      "fail": fail,
+                      "profile": profile_path if not fail else None}
+            t0 = time.perf_counter()
+            trainer = TorchTrainer(
+                me.gang_loop, train_loop_config=config,
+                scaling_config=ScalingConfig(num_workers=1, use_gpu=True,
+                                             mesh=MeshSpec(**spec)),
+                run_config=RunConfig(
+                    name=run_name, storage_path=storage,
+                    failure_config=FailureConfig(max_failures=1),
+                    checkpoint_config=CheckpointConfig(num_to_keep=1)))
+            result = trainer.fit()
+            fit_s = time.perf_counter() - t0
+            for line in trainer.failures:
+                log(f"{GANG_PATH} ({run_name}): failed {line}")
+            if result.error is not None:
+                raise SmokeFailure(f"{GANG_PATH} ({run_name}): "
+                                   f"{type(result.error).__name__}: "
+                                   f"{result.error}")
+            out[run_name] = {"history": result.metrics_history,
+                             "fit_s": fit_s, "failures": trainer.failures}
+    except exceptions.RayTpuError as exc:
+        raise SmokeFailure(f"{GANG_PATH}: {type(exc).__name__}: {exc}") \
+            from exc
+    finally:
+        rt.shutdown()
+        import shutil
+        shutil.rmtree(storage, ignore_errors=True)
+
+    whole, resumed = out["whole"]["history"], out["resumed"]["history"]
+    last = whole[-1]
+    n = last["steps_counted"]
+    counts = last["launches"]
+    by_path[GANG_PATH] = counts
+    per_step = {k: v / n for k, v in counts.items()}
+    want = {k: v for k, v in base["launches_per_step"].items()}
+    losses = [h["loss"] for h in whole]
+    norms = [h["grad_norm"] for h in whole]
+    loss_err = abs(losses[0] - base["losses"][0]) / abs(base["losses"][0])
+    gn_err = abs(norms[0] - base["grad_norms"][0]) / abs(
+        base["grad_norms"][0])
+    steps_seen = [(h["step"], h["attempt"]) for h in resumed]
+    tail = [(h["loss"], h["grad_norm"]) for h in resumed
+            if h["step"] > GANG_CKPT_AT]
+    resumed_equal = (tail == [(h["loss"], h["grad_norm"]) for h in whole
+                              if h["step"] > GANG_CKPT_AT])
+    if steps_seen != [(i, 0) for i in range(1, GANG_CKPT_AT + 1)] + [
+            (i, 1) for i in range(GANG_CKPT_AT + 1, GANG_STEPS + 1)]:
+        raise SmokeFailure(f"{GANG_PATH}: the failed run reported (step, "
+                           f"attempt) {steps_seen}; its failures "
+                           f"{out['resumed']['failures']}")
+    saved = next(h for h in resumed if h["step"] == GANG_CKPT_AT)
+    restore_s = next(h["restore_s"] for h in resumed if h["attempt"] == 1)
+    step_ms = sorted(h["step_ms"] for h in whole[-5:])[2]
+    resumed_ms = sorted(h["step_ms"] for h in resumed[-3:])[1]
+    resumed_counts = resumed[-1]["launches"]
+    resumed_per_step = {k: v / resumed[-1]["steps_counted"]
+                        for k, v in resumed_counts.items()}
+    res = {"losses": losses, "grad_norms": norms,
+           "resumed_losses": [h["loss"] for h in resumed],
+           "steps_by_attempt": steps_seen, "resumed_equal": resumed_equal,
+           "first_loss_rel_err": loss_err, "first_grad_norm_rel_err": gn_err,
+           "step_ms_median": step_ms, "resumed_step_ms_median": resumed_ms,
+           "launches_per_step": per_step,
+           "resumed_launches_per_step": resumed_per_step,
+           "save_s": saved["save_s"], "ckpt_bytes": saved["ckpt_bytes"],
+           "restore_s": restore_s, "fit_s": {k: v["fit_s"]
+                                             for k, v in out.items()},
+           "profile": last.get("profile")}
+    log(f"{GANG_PATH}: TorchTrainer, one worker with num_gpus=1 on a "
+        f"one-rank NCCL gang, MeshSpec(dp=1, fsdp=1), batch {base['batch']}: "
+        f"losses {losses} (phase 4: {base['losses']}); grad norms {norms} "
+        f"(phase 4: {base['grad_norms']})")
+    log(f"{GANG_PATH}: first loss rel gap {loss_err:.3e} (<= "
+        f"{FSDP_LOSS_RTOL:.0e}), first grad norm {gn_err:.3e} (<= "
+        f"{FSDP_GRAD_NORM_RTOL:.0e}); losses equal to phase 4's: "
+        f"{losses == base['losses']}; the failed run's (step, attempt) "
+        f"{steps_seen}, its steps {GANG_CKPT_AT + 1}-{GANG_STEPS} after the "
+        f"restart equal to the uninterrupted run's bit for bit: "
+        f"{resumed_equal}")
+    log(f"{GANG_PATH}: step {step_ms:.1f} ms (median of steps 3-7; phase 4 "
+        f"{base['step_ms']:.1f}), resumed {resumed_ms:.1f} ms (median of "
+        f"steps 5-7)"
+        + (f"; device busy {res['profile']['busy_ms']:.2f} ms/step, idle "
+           f"{res['profile']['idle_share']:.3f} (phase 4 busy "
+           f"{base['profile']['busy_ms']:.2f}, idle "
+           f"{base['profile']['idle_share']:.3f})" if profile_path else "")
+        + f"; sharded checkpoint {saved['ckpt_bytes'] / 1e9:.3f} GB saved in "
+        f"{saved['save_s']:.2f} s, restored in {restore_s:.2f} s; fit "
+        f"{res['fit_s']['whole']:.1f} s and {res['fit_s']['resumed']:.1f} s; "
+        f"launches per step {per_step}, resumed {resumed_per_step} (phase "
+        f"4: {want}) ({smi})")
+    if per_step != want or resumed_per_step != want:
+        raise SmokeFailure(f"{GANG_PATH}: launches per step {per_step} and "
+                           f"{resumed_per_step}, phase 4 {want}")
+    if loss_err > FSDP_LOSS_RTOL or gn_err > FSDP_GRAD_NORM_RTOL:
+        raise SmokeFailure(f"{GANG_PATH}: the first step disagrees with "
+                           "phase 4's")
+    if not resumed_equal:
+        raise SmokeFailure(f"{GANG_PATH}: the resumed steps differ from the "
+                           "uninterrupted run's")
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise SmokeFailure(f"{GANG_PATH}: non-finite loss or grad norm")
+    return res
+
+
 def run(args) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1802,9 +2037,10 @@ def run(args) -> int:
     # phase 12: the RL learners on the card against the CPU, then PPO on
     # CartPole with the learner on the card (also under --skip-main); the
     # path launches no flash kernel, and its counts say so
-    rl_out = {"learners": rl_learner_check(torch, rl, smi),
-              "ppo_loop": rl_ppo_loop(torch, rl, A, smi, by_path,
-                                      "rl_ppo_cartpole")}
+    learners = rl_learner_check(torch, rl, smi)
+    rl_out = {"learners": learners,
+              "ppo_loop": rl_ppo_loop(torch, rl, smi, by_path,
+                                      "rl_ppo_cartpole", learners["ppo"])}
 
     # phase 13: the port's runtime on the card; the main path inside a GPU
     # actor, beside phase 4 (its steps skipped under --skip-main)
@@ -1813,6 +2049,16 @@ def run(args) -> int:
     runtime = runtime_phase(torch, smi, by_path, main.get("gpt2_medium"),
                             driver_params or None, args.skip_main,
                             args.profile)
+
+    # phase 14: the gang trainer on the card, beside phase 4 (skipped under
+    # --skip-main)
+    gc.collect()
+    torch.cuda.empty_cache()
+    if args.skip_main:
+        by_path[GANG_PATH] = {k: None for k in A.launches}
+    else:
+        main[GANG_PATH] = gang_phase(torch, smi, by_path,
+                                     main["gpt2_medium"], args.profile)
 
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name],
@@ -1849,7 +2095,7 @@ def main() -> int:
                     "write torch.profiler's table to PATH with the path's "
                     "name before the suffix")
     ap.add_argument("--skip-main", action="store_true",
-                    help="skip the train paths, phases 4-6 and 8-11 "
+                    help="skip the train paths, phases 4-6, 8-11 and 14 "
                     "(debugging)")
     args = ap.parse_args()
     try:

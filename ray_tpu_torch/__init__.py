@@ -40,7 +40,7 @@ from .runtime_context import get_runtime_context  # noqa: F401
 
 __version__ = "0.1.0"
 
-_LAZY_SUBPACKAGES = ("models", "ops", "parallel", "rl")
+_LAZY_SUBPACKAGES = ("models", "ops", "parallel", "rl", "train")
 
 
 def __getattr__(name: str):

@@ -2907,7 +2907,18 @@ class NodeService:
                     return False
                 sched.subtract(self.resources_available, demand)
             n_gpu = int(demand.get("GPU", 0))
-            if n_gpu >= 1 and len(self._gpu_free) >= n_gpu:
+            if n_gpu >= 1:
+                if len(self._gpu_free) < n_gpu:
+                    # the capacity is back before the slots are: a
+                    # placement group removed while its killed actor's
+                    # death is still in flight returns its GPU at once,
+                    # the actor's slots only with the death. Wait for the
+                    # slots; a whole-card demand never runs without them
+                    if rec.pg_key is not None:
+                        sched.add(self.pg_reservations[rec.pg_key], demand)
+                    else:
+                        sched.add(self.resources_available, demand)
+                    return False
                 self._gpu_free.sort()
                 rec.accel_ids = self._gpu_free[:n_gpu]
                 del self._gpu_free[:n_gpu]

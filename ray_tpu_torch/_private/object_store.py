@@ -21,6 +21,7 @@ from __future__ import annotations
 import glob
 import itertools
 import json
+import mmap
 import os
 import pickle
 import tempfile
@@ -136,9 +137,44 @@ def create_segment(object_id: ObjectID, size: int) -> shared_memory.SharedMemory
 
 
 class _AttachedSegment(shared_memory.SharedMemory):
-    """Reader-side attachment. Swallows the BufferError raised at interpreter
-    exit when user code still holds zero-copy numpy views into the mapping
-    (the OS reclaims it anyway)."""
+    """Reader-side attachment that leaves the resource tracker as it was.
+
+    CPython 3.12's ``SharedMemory.__init__`` registers the name with the
+    resource tracker on attach too, and ``unlink`` unregisters it. A reader
+    whose registration outlives the segment (the node store unlinks it)
+    gets "leaked shared_memory objects" and "No such file" warnings at
+    exit. The tracker keeps a set of names, not counts, so an unregister
+    after attaching would also drop the node store's own registration of a
+    segment it created in the same process (the in-process driver). So the
+    attachment sends the tracker nothing: ``__init__`` is the POSIX attach
+    of ``SharedMemory`` without its ``register``, and ``unlink`` removes
+    the name without an ``unregister``. Swallows the BufferError raised at
+    interpreter exit when user code still holds zero-copy numpy views into
+    the mapping (the OS reclaims it anyway)."""
+
+    def __init__(self, name: str):
+        if not shared_memory._USE_POSIX:  # type: ignore[attr-defined]
+            super().__init__(name=name)
+            return
+        path = "/" + name if self._prepend_leading_slash else name
+        self._fd = shared_memory._posixshmem.shm_open(  # type: ignore[attr-defined]
+            path, os.O_RDWR, mode=self._mode)
+        self._name = path
+        try:
+            size = os.fstat(self._fd).st_size
+            self._mmap = mmap.mmap(self._fd, size)
+        except OSError:
+            os.close(self._fd)
+            self._fd = -1
+            raise
+        self._size = size
+        self._buf = memoryview(self._mmap)
+
+    def unlink(self):
+        if shared_memory._USE_POSIX and self._name:  # type: ignore[attr-defined]
+            shared_memory._posixshmem.shm_unlink(self._name)  # type: ignore[attr-defined]
+        else:
+            super().unlink()
 
     def __del__(self):
         try:
@@ -148,10 +184,9 @@ class _AttachedSegment(shared_memory.SharedMemory):
 
 
 def attach_segment(name: str) -> shared_memory.SharedMemory:
-    """Attach to an existing segment. Python 3.12's SharedMemory registers
-    with the resource tracker only on create, so attaching needs no
-    unregister dance; cleanup is owned by the node store."""
-    return _AttachedSegment(name=name)
+    """Attach to an existing segment without touching the resource tracker
+    (see `_AttachedSegment`); cleanup is owned by the node store."""
+    return _AttachedSegment(name)
 
 
 @dataclass

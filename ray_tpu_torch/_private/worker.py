@@ -63,6 +63,20 @@ def _set_visible_devices(ids: Optional[List[int]]) -> None:
         devs[i] if devs else str(i) for i in ids or ())
 
 
+def _set_cpu_threads(resources: Dict[str, float]) -> None:
+    """Run a task or an actor on as many intra-op threads as it holds CPUs
+    (at least one), as Ray sets ``OMP_NUM_THREADS`` from ``num_cpus``:
+    torch's default of one thread per core spins every core for small
+    ops, and a few such workers on a busy host crowd each other out.
+    torch reads the variable when it starts; one already started is set
+    directly."""
+    n = max(1, int(resources.get("CPU", 0)))
+    os.environ["OMP_NUM_THREADS"] = str(n)
+    torch = sys.modules.get("torch")
+    if torch is not None:
+        torch.set_num_threads(n)
+
+
 @fieldsan.guarded
 class WorkerRuntime:
     def __init__(self, socket_path: str, node_id: NodeID,
@@ -271,6 +285,8 @@ class WorkerRuntime:
         context.current_task_name = spec.name
         context.current_accel_ids = spec.accel_ids
         _set_visible_devices(spec.accel_ids)
+        if kind != "actor_call":
+            _set_cpu_threads((actor_spec or spec).resources)
         # inherit the submitting job's namespace so nested named-actor
         # lookups/creations resolve where the driver's would (ContextVar:
         # concurrent calls on a threaded actor don't race each other)

@@ -38,7 +38,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -218,48 +218,81 @@ def check_mesh(c: GPTConfig, mesh: Optional[Mesh],
 
 # --- model -----------------------------------------------------------------
 
-def _normal(gen, device, dtype, std, *shape) -> nn.Parameter:
-    return nn.Parameter(torch.randn(shape, generator=gen, device=device,
-                                    dtype=torch.float32).mul_(std).to(dtype))
+class _Draw:
+    """Draws the parameters from one generator in one order, whatever the
+    layout: each tensor is drawn whole (normal, std, in f32, then cast)
+    and, when `local` is given, cut at once to this rank's part of it, so
+    the full tensor is freed before the next is drawn. `local(name,
+    shape)` gives the slices of that part, or None for a parameter this
+    rank does not hold (another pipeline stage's block), which is drawn
+    all the same to keep the generator's order."""
+
+    def __init__(self, gen: torch.Generator, device, dtype,
+                 local: Optional[Callable] = None, prefix: str = ""):
+        self.gen, self.device, self.dtype = gen, device, dtype
+        self.local, self.prefix = local, prefix
+
+    def scoped(self, prefix: str) -> "_Draw":
+        return _Draw(self.gen, self.device, self.dtype, self.local,
+                     self.prefix + prefix)
+
+    def _part(self, name: str, shape):
+        if self.local is None:
+            return ()
+        return self.local(self.prefix + name, shape)
+
+    def normal(self, name: str, std: float, *shape
+               ) -> Optional[nn.Parameter]:
+        full = torch.randn(shape, generator=self.gen, device=self.device,
+                           dtype=torch.float32).mul_(std).to(self.dtype)
+        part = self._part(name, shape)
+        if part is None:
+            return None
+        return nn.Parameter(full if part == () else full[part].clone())
+
+    def const(self, name: str, value: float, *shape
+              ) -> Optional[nn.Parameter]:
+        part = self._part(name, shape)
+        if part is None:
+            return None
+        if part != ():
+            shape = torch.empty(shape, device="meta")[part].shape
+        return nn.Parameter(torch.full(shape, value, device=self.device,
+                                       dtype=self.dtype))
 
 
 class Block(nn.Module):
-    """One transformer block's parameters, in the JAX layout."""
+    """One transformer block's parameters, in the JAX layout, drawn by
+    `draw` (scoped to the block's name) in the generator's order."""
 
-    def __init__(self, c: GPTConfig, device, gen: torch.Generator):
+    def __init__(self, c: GPTConfig, draw: _Draw):
         super().__init__()
         d, f, hd = c.d_model, c.ff_dim, c.head_dim
         h, hk = c.n_heads, c.kv_heads
         std = 0.02
         resid_std = std / math.sqrt(2 * c.n_layers)
+        normal, const = draw.normal, draw.const
 
-        def normal(*shape, s=std):
-            return _normal(gen, device, c.param_dtype, s, *shape)
-
-        def const(value, *shape):
-            return nn.Parameter(torch.full(shape, value, device=device,
-                                           dtype=c.param_dtype))
-
-        self.norm1 = const(1.0, d)
-        self.norm2 = const(1.0, d)
-        self.wq = normal(d, h, hd)
-        self.wk = normal(d, hk, hd)
-        self.wv = normal(d, hk, hd)
-        self.wo = normal(h, hd, d, s=resid_std)
+        self.norm1 = const("norm1", 1.0, d)
+        self.norm2 = const("norm2", 1.0, d)
+        self.wq = normal("wq", std, d, h, hd)
+        self.wk = normal("wk", std, d, hk, hd)
+        self.wv = normal("wv", std, d, hk, hd)
+        self.wo = normal("wo", resid_std, h, hd, d)
         if c.n_experts > 0:
             E = c.n_experts
-            self.router = normal(d, E)
-            self.w_up = normal(E, d, f)
-            self.w_gate = normal(E, d, f)
-            self.w_down = normal(E, f, d, s=resid_std)
+            self.router = normal("router", std, d, E)
+            self.w_up = normal("w_up", std, E, d, f)
+            self.w_gate = normal("w_gate", std, E, d, f)
+            self.w_down = normal("w_down", resid_std, E, f, d)
         else:
-            self.w_up = normal(d, f)
-            self.w_down = normal(f, d, s=resid_std)
+            self.w_up = normal("w_up", std, d, f)
+            self.w_down = normal("w_down", resid_std, f, d)
             if c.activation == "swiglu":
-                self.w_gate = normal(d, f)
+                self.w_gate = normal("w_gate", std, d, f)
         if c.norm == "layernorm":
-            self.bias1 = const(0.0, d)
-            self.bias2 = const(0.0, d)
+            self.bias1 = const("bias1", 0.0, d)
+            self.bias2 = const("bias2", 0.0, d)
 
     def forward(self, block_fn, x, positions):
         """block_fn(self, x, positions): the model's computation of this
@@ -275,8 +308,8 @@ class GPT(nn.Module):
     Parameters are initialised from `seed` with a `torch.Generator` on
     `device` (normal, std 0.02; residual projections 0.02/sqrt(2L)), as the
     JAX model's `init` does with its key; the two give different numbers.
-    On a process mesh every rank draws the same full weights and keeps its
-    shards of them.
+    On a process mesh every rank draws the same tensors in the same order
+    and keeps only its shards, cutting each as it is drawn.
     """
 
     def __init__(self, config: GPTConfig, device="cuda", seed: int = 0,
@@ -314,24 +347,27 @@ class GPT(nn.Module):
         device = resolve_device(device)
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
+        # on a process mesh each tensor is cut to this rank's part as soon
+        # as it is drawn: a rank never holds more than its shards and one
+        # full tensor (JAX's init runs under jit(out_shardings=...))
+        draw = _Draw(gen, device, c.param_dtype,
+                     self._local_part() if self.sums_over_ranks else None)
         d = c.d_model
 
-        def normal(*shape):
-            return _normal(gen, device, c.param_dtype, 0.02, *shape)
-
-        self.tok_embed = normal(c.vocab_size, d)
+        self.tok_embed = draw.normal("tok_embed", 0.02, c.vocab_size, d)
         # keyed by layer: a pipeline stage keeps its blocks' global names
-        self.blocks = nn.ModuleDict({str(i): Block(c, device, gen)
-                                     for i in range(c.n_layers)})
-        self.norm_f = nn.Parameter(torch.ones(d, device=device,
-                                              dtype=c.param_dtype))
+        blocks = {str(i): Block(c, draw.scoped(f"blocks.{i}."))
+                  for i in range(c.n_layers)}
+        self.blocks = nn.ModuleDict({k: b for k, b in blocks.items()
+                                     if b.wq is not None})
+        del blocks
+        self.norm_f = draw.const("norm_f", 1.0, d)
         if c.positions == "learned":
-            self.pos_embed = normal(c.max_seq_len, d)
+            self.pos_embed = draw.normal("pos_embed", 0.02, c.max_seq_len, d)
         if c.norm == "layernorm":
-            self.bias_f = nn.Parameter(torch.zeros(d, device=device,
-                                                   dtype=c.param_dtype))
+            self.bias_f = draw.const("bias_f", 0.0, d)
         if not c.tie_embeddings:
-            self.lm_head = normal(d, c.vocab_size)
+            self.lm_head = draw.normal("lm_head", 0.02, d, c.vocab_size)
         if self.sums_over_ranks:
             self._shard()
 
@@ -343,28 +379,33 @@ class GPT(nn.Module):
         per = self.config.n_layers // self.pp_stages
         return range(stage * per, (stage + 1) * per)
 
-    def _shard(self) -> None:
-        """This rank's layout on a process mesh: the blocks of its pipeline
-        stage, every parameter cut to its tp and ep slice by the rules, then
-        FSDP2 over the (dp, fsdp) mesh, each block and then the root; the
-        gradients are summed, not averaged (the loss is already each rank's
-        share of the global one)."""
-        from torch.distributed.fsdp import fully_shard
-
+    def _local_part(self) -> Callable:
+        """name, global shape -> this rank's slices of the parameter by the
+        rules' tp and ep axes, or None for a block of another pipeline
+        stage."""
+        tp_rules = self.rules.only(AXIS_TP, AXIS_EP)
+        axes = self.param_logical_axes()
+        mine = None
         if self._pipe is not None:
             mine = self._stage_layers(self.mesh.coords[
                 self.rules.mesh_axes("stage")])
-            for key in list(self.blocks):
-                if int(key) not in mine:
-                    del self.blocks[key]
+
+        def local(name, shape):
+            if mine is not None and name.startswith("blocks."):
+                if int(name.split(".")[1]) not in mine:
+                    return None
+            return logical_sharding(self.mesh, tp_rules, axes[name], shape)
+        return local
+
+    def _shard(self) -> None:
+        """This rank's layout on a process mesh, after `_Draw` has kept the
+        blocks of its pipeline stage and cut every parameter to its tp and
+        ep slice: FSDP2 over the (dp, fsdp) mesh, each block and then the
+        root; the gradients are summed, not averaged (the loss is already
+        each rank's share of the global one)."""
+        from torch.distributed.fsdp import fully_shard
+
         tp_rules = self.rules.only(AXIS_TP, AXIS_EP)
-        axes = self.param_logical_axes()
-        for name, p in list(self.named_parameters()):
-            owner, _, attr = name.rpartition(".")
-            local = p.detach()[logical_sharding(self.mesh, tp_rules,
-                                                axes[name], p.shape)]
-            setattr(self.get_submodule(owner), attr,
-                    nn.Parameter(local.clone()))
         self._vocab_lo = logical_sharding(self.mesh, tp_rules, ("vocab",),
                                           (self.config.vocab_size,))[0].start
         for module in [*self.blocks.values(), self]:

@@ -8,19 +8,25 @@ default). The optimizer is ``models.training.Optimizer`` with optax's
 1e-8, no decay, a constant learning rate. The batch moves to the device
 once per update, and the stats come back as Python floats in one copy.
 
-The actor forms (``_LearnerActor``, ``LearnerGroup``) wait for the port's
-runtime core.
+The actor forms: ``_LearnerActor`` holds a ``Learner`` in an actor of the
+port's runtime, which gets its card through a GPU slot, and
+``LearnerGroup`` (``ray_tpu/rl/learner.py:144-224``) places one or more of
+them, splits each batch over them and averages their weights in numpy, as
+JAX's does. Weights cross actors as ``get_weights`` gives them, JAX's
+pytree layout with numpy leaves.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..models.gpt import resolve_device
 from ..models.training import Optimizer
 from . import sample_batch as SB
+from ._remote import RemoteMixin
 from .convert import params_from_jax, params_to_jax
 from .module import DiscretePolicyModule
 
@@ -29,8 +35,13 @@ Stats = Dict[str, torch.Tensor]
 
 
 def to_device(batch, device: torch.device) -> Batch:
-    """A batch of numpy columns -> tensors on `device`, one copy each."""
-    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    """A batch of numpy columns -> tensors on `device`, one copy each (a
+    read-only column, as an actor gets it from the object store, is copied
+    on the CPU too)."""
+    return {k: torch.as_tensor(v if getattr(v, "flags", None) is None
+                               or v.flags.writeable else v.copy(),
+                               device=device)
+            for k, v in batch.items()}
 
 
 def sgd_step(module: torch.nn.Module, optimizer: Optimizer, opt_state: Dict,
@@ -177,3 +188,128 @@ class Learner:
 
     def set_weights(self, weights) -> None:
         self.module.load_state_dict(params_from_jax(weights))
+
+
+class _LearnerActor(RemoteMixin):
+    """A `Learner` in an actor; with a GPU slot its device "cuda" is the
+    slot's card."""
+
+    def __init__(self, module_config: dict, learner_kwargs: dict):
+        module = DiscretePolicyModule(**module_config)
+        self.learner = Learner(module, **learner_kwargs)
+
+    def update(self, batch) -> Dict[str, float]:
+        return self.learner.update(SB.SampleBatch(batch))
+
+    def get_weights(self):
+        return self.learner.get_weights()
+
+    def set_weights(self, weights) -> None:
+        self.learner.set_weights(weights)
+
+    def kernel_launches(self, reset: bool = False) -> Dict[str, int]:
+        """This process's flash-kernel launch counts (`ops.attention`),
+        set to 0 after reading when `reset`."""
+        from ..ops import attention
+        counts = dict(attention.launches)
+        if reset:
+            attention.reset_launch_counts()
+        return counts
+
+
+def learner_actor_options(resources: Optional[dict], device) -> dict:
+    """Actor options for a learner: ``resources_per_learner`` as
+    num_cpus / num_gpus / custom resources; by default one GPU slot when
+    the learner's device is the card."""
+    if resources is None:
+        resources = ({"GPU": 1} if torch.device(device).type == "cuda"
+                     else {})
+    res = dict(resources)
+    opts = {}
+    if "CPU" in res:
+        opts["num_cpus"] = res.pop("CPU")
+    if "GPU" in res:
+        opts["num_gpus"] = res.pop("GPU")
+    if res:
+        opts["resources"] = res
+    return opts
+
+
+def mean_weights(trees):
+    """The element-wise mean of weight pytrees (dicts and lists with numpy
+    leaves), in numpy, as JAX's ``tree_map(np.mean(np.stack(...)))``."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: mean_weights([t[k] for t in trees]) for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(mean_weights(list(ws)) for ws in zip(*trees))
+    return np.mean(np.stack(trees), axis=0)
+
+
+class LearnerGroup:
+    """Placement wrapper: run the learner on its own actor, on a card of
+    its own unless `device` (a learner kwarg) is "cpu".
+
+    num_learners>1 splits each batch and averages weights after update —
+    only useful across cards; on one card prefer one learner.
+    """
+
+    def __init__(self, module: DiscretePolicyModule, *,
+                 num_learners: int = 1,
+                 resources_per_learner: Optional[dict] = None,
+                 **learner_kwargs):
+        opts = learner_actor_options(resources_per_learner,
+                                     learner_kwargs.get("device", "cuda"))
+        cfg = {"observation_size": module.observation_size,
+               "action_size": module.action_size,
+               "hidden": module.hidden}
+        self._actors = [
+            _LearnerActor.options(**opts).remote(cfg, learner_kwargs)
+            for _ in range(num_learners)]
+
+    def update(self, batch: SB.SampleBatch) -> Dict[str, float]:
+        from .. import get
+        b = len(batch)
+        # never hand a learner an empty slice: with fewer rows than
+        # learners (async algorithms often deliver a single fragment)
+        # only the first len(batch) actors participate this round
+        parts = self._actors[:max(1, min(len(self._actors), b))]
+        n = len(parts)
+        if n == 1:
+            stats = [get(parts[0].update.remote(dict(batch)))]
+        else:
+            size = b // n
+            refs = []
+            for i, a in enumerate(parts):
+                hi = b if i == n - 1 else (i + 1) * size
+                refs.append(a.update.remote(dict(batch.slice(i * size,
+                                                             hi))))
+            stats = get(refs)
+        if len(self._actors) > 1:
+            # data-parallel consensus over the participants, broadcast
+            # to everyone (non-participants hold pre-update weights)
+            weights = get([a.get_weights.remote() for a in parts])
+            mean_w = mean_weights(weights)
+            get([a.set_weights.remote(mean_w) for a in self._actors])
+        return {k: float(np.mean([s[k] for s in stats]))
+                for k in stats[0]}
+
+    def get_weights(self):
+        from .. import get
+        return get(self._actors[0].get_weights.remote())
+
+    def kernel_launches(self, reset: bool = False) -> Dict[str, int]:
+        """The learners' flash-kernel launch counts, summed over their
+        processes (each set to 0 after reading when `reset`)."""
+        from .. import get
+        counts = get([a.kernel_launches.remote(reset)
+                      for a in self._actors])
+        return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+    def shutdown(self) -> None:
+        from .. import kill
+        for a in self._actors:
+            try:
+                kill(a)
+            except Exception:
+                pass

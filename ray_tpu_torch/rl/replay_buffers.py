@@ -4,8 +4,8 @@ Reference: ``rllib/utils/replay_buffers/`` (ReplayBuffer,
 PrioritizedReplayBuffer with proportional sampling + importance
 weights, per Schaul et al. 2016). The port's own copy of
 ``ray_tpu/rl/replay_buffers.py`` (numpy only): sampling under a seed equals
-the JAX package's exactly. The in-process form only: the actor form
-(``as_remote``) waits for the port's runtime core.
+the JAX package's exactly; ``as_remote`` gives the same buffer as an actor
+class of the port's runtime.
 """
 
 from __future__ import annotations
@@ -48,6 +48,13 @@ class ReplayBuffer:
     def stats(self) -> Dict[str, Any]:
         return {"size": len(self._items), "num_added": self.num_added,
                 "capacity": self.capacity}
+
+    @classmethod
+    def as_remote(cls, **actor_options):
+        """The same buffer as a zero-CPU actor class (reference:
+        actor-hosted replay in RLlib)."""
+        from ..api import remote
+        return remote(num_cpus=0, **actor_options)(cls)
 
 
 class PrioritizedReplayBuffer(ReplayBuffer):

@@ -2,8 +2,10 @@
 
 Counterpart of ``ray_tpu/rl/vector_env.py``: ``VectorEnv`` (N sub-envs
 stepped as a batch with auto-reset) is its numpy copy, and ``EnvRunner`` is
-the body of the JAX actor class as a plain class. The policy is evaluated
-once per step for all N sub-envs, a [N, obs] batched forward.
+the body of the JAX actor class: ``EnvRunner(...)`` in process,
+``EnvRunner.remote(...)`` as an actor of the port's runtime, as JAX's
+``@remote`` class. The policy is evaluated once per step for all N
+sub-envs, a [N, obs] batched forward.
 
 Like every entry point of the port, the runner puts its policy on the card
 unless the caller passes ``device="cpu"``. The callers that follow the JAX
@@ -12,8 +14,8 @@ runners evaluate the policy on host devices, and the runtime starts its
 workers with ``JAX_PLATFORMS=cpu``), while the learners' updates run on
 the card.
 
-The actor form, and ``collect_epsilon_greedy`` (which puts the batch into
-the object store), wait for the port's runtime core.
+Weights arrive as the learners hand them out (``Learner.get_weights``):
+JAX's pytree layout with numpy leaves.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch
 
 from ..models.gpt import resolve_device
 from . import sample_batch as SB
+from ._remote import RemoteMixin
 from .convert import params_from_jax
 from .dqn import NEXT_OBS
 from .module import DiscretePolicyModule, QNetworkModule
@@ -85,7 +88,7 @@ class VectorEnv:
         return obs, rewards, terms, truncs, final
 
 
-class EnvRunner:
+class EnvRunner(RemoteMixin):
     """The sampler every algorithm uses (reference:
     ``rllib/env/env_runner.py``): a VectorEnv plus a batched policy head on
     `device`. ``sample`` serves the on-policy family (PPO flat+GAE, IMPALA
@@ -246,3 +249,14 @@ class EnvRunner:
         rewards, self._episode_rewards = self._episode_rewards, []
         stats = {"episode_rewards": rewards}
         return batch, stats
+
+    def collect_epsilon_greedy(self, weights, num_steps: int,
+                               epsilon: float):
+        """DQN replay-plane form: the batch goes STRAIGHT to the object
+        store from this actor; only the ref travels (the buffer actor
+        holds refs, never payloads)."""
+        from .. import put
+        batch, stats = self.sample_epsilon_greedy(weights, num_steps,
+                                                  epsilon)
+        count = int(len(batch[SB.ACTIONS]))
+        return [put(batch)], count, stats

@@ -35,7 +35,7 @@ from ray_tpu_torch.models import training as ttrain
 from ray_tpu_torch.models.convert import params_from_jax
 from ray_tpu_torch.parallel import AXIS_ORDER, Mesh, MeshSpec, shard_params
 
-torch.set_num_threads(torch_dist_worker.THREADS)
+torch_dist_worker.settle()
 
 # f32 on both sides, partitioned sums in other orders. Per step losses,
 # grad norms and the load-balance loss to 1e-5 relative of JAX's sharded

@@ -54,6 +54,11 @@ def test_import_leaves_jax_and_ray_tpu_out():
             "ray_tpu_torch.rl.replay_buffers, ray_tpu_torch.rl.module, "
             "ray_tpu_torch.rl.convert, ray_tpu_torch.rl.learner, "
             "ray_tpu_torch.rl.dqn, ray_tpu_torch.rl.vector_env, "
+            "ray_tpu_torch.rl.ppo, ray_tpu_torch.rl.impala, "
+            "ray_tpu_torch.rl._remote, ray_tpu_torch.ops.cpu_numerics, "
+            "ray_tpu_torch.train, ray_tpu_torch.train.trainer, "
+            "ray_tpu_torch.train.checkpoint, ray_tpu_torch.train.session, "
+            "ray_tpu_torch.train.config, ray_tpu_torch.train.result, "
             + ", ".join(f"ray_tpu_torch.{m}" for m in RUNTIME_MODULES) + "; "
             "sys.path.insert(0, 'tests'); import torch_dist_worker; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -73,7 +78,7 @@ def test_runtime_import_is_light():
             "ray_tpu_torch._private.worker; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'ray_tpu', 'torch')]; print(bad); "
-            "import ray_tpu_torch as rt; rt.models, rt.rl; "
+            "import ray_tpu_torch as rt; rt.models, rt.rl, rt.train; "
             "from ray_tpu_torch import ops, parallel; "
             "sys.exit(1 if bad or 'torch' not in sys.modules else 0)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

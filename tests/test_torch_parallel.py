@@ -34,7 +34,7 @@ from ray_tpu_torch.parallel import (AXIS_ORDER, DEFAULT_RULES, Mesh, MeshSpec,
                                     shard_batch, shard_params,
                                     with_logical_constraint)
 
-torch.set_num_threads(torch_dist_worker.THREADS)
+torch_dist_worker.settle()
 
 # f32 on both sides; the ring, the all-reduces and XLA's partitioned sums
 # add in other orders. Per step, losses and grad norms to 1e-5 relative
@@ -408,6 +408,30 @@ def test_same_weights_on_every_rank(trained):
         np.testing.assert_array_equal(res["init"], ranks[0]["init"])
     coords = sorted(tuple(r["coords"]) for r in ranks)
     assert len(set(coords)) == len(ranks)
+
+
+def test_shards_equal_slices_of_the_unsharded_draw(trained):
+    """Each rank cuts every tensor to its part as it is drawn; its shards
+    (the FSDP2 shard of its tp slice) are bit-equal to the same part of the
+    weights `GPT(config, seed=0)` draws with no mesh, as when every rank
+    drew the full weights and sliced them."""
+    ranks, _ = trained
+    for rank, res in enumerate(ranks):
+        assert list(res["shards_not_matching"]) == [], f"rank {rank}"
+
+
+def test_build_holds_one_full_tensor_beyond_its_shards(tmp_path):
+    """While a rank of a 4-rank fsdp x tp mesh builds the model, the bytes
+    alive at once never exceed its tp slices plus the largest full
+    parameter, and no tensor larger than that parameter is allocated
+    (every full parameter alive at once would be the whole model)."""
+    ranks = torch_dist_worker.launch(torch_dist_worker.build_memory_rank, 4,
+                                     tmp_path, dict(fsdp=2, tp=2), {})
+    for rank, res in enumerate(ranks):
+        assert res["largest"] <= res["largest_param"], rank
+        assert res["peak"] - res["sliced"] <= res["largest_param"], (
+            rank, {k: int(v) for k, v in res.items()})
+        assert res["sliced"] < res["model"], rank
 
 
 def test_train_trajectory_matches_jax(trained):

@@ -34,7 +34,7 @@ from ray_tpu_torch.models import training as ttrain
 from ray_tpu_torch.models.convert import params_from_jax
 from ray_tpu_torch.parallel import AXIS_ORDER, MeshSpec, loopback_mesh
 
-torch.set_num_threads(torch_dist_worker.THREADS)
+torch_dist_worker.settle()
 
 # f32 on both sides. Logits of the pipeline per element (O(0.1) values;
 # JAX's own test bounds its bf16 pipeline at 2e-2); losses and grad norms

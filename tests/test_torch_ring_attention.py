@@ -26,7 +26,7 @@ from ray_tpu_torch.ops import attention as tattn
 
 R = importlib.import_module("ray_tpu_torch.ops.ring_attention")
 
-torch.set_num_threads(torch_dist_worker.THREADS)
+torch_dist_worker.settle()
 
 # f32 on both sides, sums in another order: outputs (|out| < 3) and the
 # gradients of sum(out**2) (|g| up to 26 at S 256) to 1e-5, relative and
@@ -216,3 +216,21 @@ def test_process_group_ring_equals_loopback(world, tmp_path):
         np.testing.assert_allclose(full, _loopback(q, k, v, world, causal)[0],
                                    rtol=F32_RTOL, atol=F32_ATOL,
                                    err_msg=where)
+
+
+def test_fresh_process_passes_are_bit_equal(tmp_path):
+    """The premise of the test above, in fresh processes: two passes of the
+    causal loopback ring at its shapes on 2 threads give the same bits.
+    Without `settle` about 1 process in 10 to 40 (more under load) ran its
+    first pass's `exp` on VML's low-accuracy kernel in one thread's rows,
+    and its passes differed by up to 8.7e-5."""
+    q, k, v = _qkv(s=128)
+    inputs = tmp_path / "qkv.npz"
+    np.savez(inputs, q=q, k=k, v=v)
+    runs = torch_dist_worker.fresh_processes(
+        torch_dist_worker.loopback_twice, 20, 5, tmp_path, str(inputs), 2,
+        True)
+    for i, res in enumerate(runs):
+        for name in ("out", "dq", "dk", "dv"):
+            np.testing.assert_array_equal(res[f"{name}1"], res[f"{name}2"],
+                                          err_msg=f"{name}, process {i}")

@@ -247,3 +247,58 @@ def test_write_to_gotten_tensor_leaves_the_store_alone():
     first += 1
     assert torch.equal(rt.get(ref)["t"],
                        torch.arange(1 << 20, dtype=torch.float32))
+
+
+# --- the port's own repairs -------------------------------------------------
+
+def test_workers_run_torch_on_their_cpu_grant():
+    """A task, or an actor from its creation on, runs torch on as many
+    intra-op threads as it holds CPUs (at least one), as Ray sets
+    OMP_NUM_THREADS from num_cpus; a pooled worker that has loaded torch
+    is set anew for each task."""
+    threads = rt.remote(T.torch_threads)
+    for cpus, want in ((None, 1), (2, 2), (None, 1), (0.5, 1), (3, 3)):
+        task = threads if cpus is None else threads.options(num_cpus=cpus)
+        assert rt.get(task.remote()) == want, cpus
+    actor_cls = rt.remote(T.TorchThreads)
+    default, three = actor_cls.remote(), actor_cls.options(
+        num_cpus=3).remote()
+    assert rt.get(default.get.remote()) == 1
+    assert rt.get(three.get.remote()) == 3
+    rt.kill(default)
+    rt.kill(three)
+
+
+def test_large_result_leaves_no_resource_tracker_warning(tmp_path):
+    """A driver that gets a 600 MB task result, and a task that gets a 600
+    MB object the driver put (each over the arena's 512 MB limit, so a
+    segment of its own), exit without the resource tracker's "leaked
+    shared_memory objects" warning: an attachment registers nothing, and
+    the node store's own segments stay registered as before. Before the
+    repair the worker's attachment stayed registered after the node store
+    unlinked the segment, and its tracker warned at exit."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    code = (
+        "import ray_tpu_torch as rt, torch_runtime_tasks as T\n"
+        "n = 600 * 2**20\n"
+        "rt.init(num_cpus=1)\n"
+        "x = rt.get(rt.remote(T.zeros_u8).remote(n))\n"
+        "assert x.nbytes == n and not x.any()\n"
+        "ref = rt.put(T.zeros_u8(n))\n"
+        "assert rt.get(rt.remote(T.nbytes_of).remote("
+        "'ray_tpu_torch', [ref])) == n\n"
+        "del x, ref\n"
+        "rt.shutdown()\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(root), str(root / "tests")]))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "resource_tracker" not in proc.stderr, proc.stderr
+    assert "leaked" not in proc.stderr, proc.stderr

@@ -185,3 +185,30 @@ def test_cuda_tensor_record_fails_a_task_without_a_card():
             rt.get(rt.remote(T.echo).remote(ref), timeout=60)
     finally:
         rt.shutdown()
+
+
+@pytest.mark.parametrize("runtime", [{"num_cpus": 4, "num_gpus": 1}],
+                         indirect=True)
+def test_whole_card_waits_for_a_killed_actors_slot(runtime):
+    """A placement group removed right after its actor is killed gives its
+    GPU back at once, the actor's slot only when its death is processed: a
+    new gang's whole-card actor waits for the slot instead of running with
+    none (CUDA_VISIBLE_DEVICES "", no card), as TorchTrainer's restart
+    would have it."""
+    from ray_tpu_torch.util.placement_group import (placement_group,
+                                                    remove_placement_group)
+    from ray_tpu_torch.util.scheduling_strategies import (
+        PlacementGroupSchedulingStrategy)
+
+    holder = rt.remote(T.Slots)
+    for _ in range(3):
+        pg = placement_group([{"CPU": 1, "GPU": 1}])
+        pg.ready(timeout=30)
+        strategy = PlacementGroupSchedulingStrategy(
+            placement_group=pg, placement_group_bundle_index=0)
+        actor = holder.options(num_gpus=1,
+                               scheduling_strategy=strategy).remote()
+        assert rt.get(actor.ids.remote(NAME), timeout=60) == ({"GPU": [0]},
+                                                              "0")
+        rt.kill(actor)
+        remove_placement_group(pg)

@@ -16,9 +16,14 @@ import time
 import traceback
 from typing import Callable, Dict, List
 
+import weakref
+
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from ray_tpu_torch.ops.cpu_numerics import settle_cpu_numerics
 
 # the parent tests run torch on 2 threads too, so sums come out the same
 THREADS = 2
@@ -61,8 +66,53 @@ def _out_path(workdir, target, rank):
     return os.path.join(workdir, f"{target.__name__}_rank{rank}.npz")
 
 
+def settle() -> None:
+    """Torch on THREADS intra-op threads, with the first call of each
+    VML-backed op made in one thread: two passes over the same values give
+    the same bits from the first op on (`settle_cpu_numerics`). Every rank
+    program and every test process that compares bits runs this first."""
+    settle_cpu_numerics(THREADS)
+
+
+def fresh_processes(target: Callable, n: int, at_once: int, workdir, *args,
+                    timeout: float = LAUNCH_TIMEOUT
+                    ) -> List[Dict[str, np.ndarray]]:
+    """Run target(i, *args) in `n` fresh spawned processes, `at_once` at a
+    time, each set up as a rank program is (`settle`) but with no process
+    group; fail if any fails or the whole run outlives `timeout` s."""
+    workdir = str(workdir)
+    deadline = time.monotonic() + timeout
+    ctx = multiprocessing.get_context("spawn")
+    codes = []
+    for start in range(0, n, at_once):
+        procs = [ctx.Process(target=_fresh_main,
+                             args=(target, i, workdir, args))
+                 for i in range(start, min(n, start + at_once))]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+            codes.append(p.exitcode)
+    if any(codes):
+        raise AssertionError(f"{target.__name__} in {n} fresh processes: "
+                             f"exit codes {codes}")
+    return [dict(np.load(_out_path(workdir, target, i))) for i in range(n)]
+
+
+def _fresh_main(target, i, workdir, args):
+    settle()
+    try:
+        np.savez(_out_path(workdir, target, i), **target(i, *args))
+    except BaseException:
+        traceback.print_exc()
+        raise SystemExit(1)
+
+
 def _rank_main(target, rank, world, store, workdir, args):
-    torch.set_num_threads(THREADS)
+    settle()
     try:
         dist.init_process_group(
             "gloo", store=dist.FileStore(store, world), rank=rank,
@@ -129,9 +179,78 @@ def ring_rank(rank, world, inputs_path, causal):
     return res
 
 
+def loopback_twice(index, inputs_path, sp, causal):
+    """Two passes of the loopback ring over sp shards in this fresh
+    process: the output and the q/k/v gradients of sum(out**2) of each."""
+    import importlib
+
+    R = importlib.import_module("ray_tpu_torch.ops.ring_attention")
+    data = np.load(inputs_path)
+    res = {}
+    for p in (1, 2):
+        ts = [torch.tensor(data[n]).requires_grad_() for n in ("q", "k", "v")]
+        shards = [list(t.chunk(sp, dim=2)) for t in ts]
+        out = torch.cat(R.ring_attention(*shards, R.LoopbackRing(sp),
+                                         causal=causal), dim=2)
+        (out ** 2).sum().backward()
+        for name, a in zip(("out", "dq", "dk", "dv"),
+                           (out, *(t.grad for t in ts))):
+            res[f"{name}{p}"] = a.detach().numpy()
+    return res
+
+
 # --- the model and the train step --------------------------------------------
 
-def _model(config_kw, spec_kw, params_path, family="llama_tiny"):
+def gang_loop(config):
+    """f32 llama_tiny on this worker's part of the mesh, from the saved
+    parameters; a sharded checkpoint after each step in `ckpt_at`, resumed
+    from on a restart; optionally rank `die_rank` exits after the step-
+    `die_step` checkpoint of the first attempt. Rank 0 saves the final
+    parameters, gathered to full."""
+    import os
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import convert, gpt, training
+    from ray_tpu_torch.parallel import MeshSpec, build_mesh
+
+    settle()    # a resumed gang takes its steps in fresh processes
+    ctx = train.get_context()
+    mesh = build_mesh(MeshSpec(**config["spec"]), device_type="cpu")
+    model = gpt.GPT(gpt.llama_tiny(dtype=torch.float32), device="cpu",
+                    seed=0, mesh=mesh)
+    data = np.load(config["params"])
+    convert.load_full_state_dict(
+        model, {n: torch.tensor(data[n]) for n in data.files})
+    opt = training.make_optimizer(**config["opt"])
+    state = training.init_train_state(model, opt, device="cpu", mesh=mesh)
+    step = training.make_train_step(model, opt, device="cpu", mesh=mesh)
+    resume = train.get_checkpoint()
+    if resume is not None:
+        resume.to_state_dict(template=state)
+    batch = {"tokens": torch.tensor(np.load(config["tokens"])["tokens"])
+             .long()}
+    while state.step < config["steps"]:
+        state, m = step(state, batch)
+        ckpt = (train.Checkpoint.from_state_dict(state)
+                if state.step in config["ckpt_at"] else None)
+        train.report({"step": state.step, "loss": float(m["loss"]),
+                      "grad_norm": float(m["grad_norm"]),
+                      "attempt": ctx.attempt}, checkpoint=ckpt)
+        if (ctx.attempt == 0 and state.step == config.get("die_step")):
+            dist.barrier()      # rank 0's report is in the queue
+            if ctx.get_world_rank() == config["die_rank"]:
+                os._exit(1)
+    full = convert.full_state_dict(model)
+    if ctx.get_world_rank() == 0:
+        np.savez(config["out"], **{n: t.numpy() for n, t in full.items()})
+
+
+
+def _model(config_kw, spec_kw, params_path, family="llama_tiny",
+           check_shards=False):
     from ray_tpu_torch.models import convert, gpt
     from ray_tpu_torch.parallel import MeshSpec, build_mesh
 
@@ -141,6 +260,8 @@ def _model(config_kw, spec_kw, params_path, family="llama_tiny"):
     else:
         cfg = gpt.GPTConfig(dtype=torch.float32, **config_kw)
     model = gpt.GPT(cfg, device="cpu", seed=0, mesh=mesh)
+    if check_shards:
+        model.shards_not_matching = _shards_match_unsharded(model, cfg)
     init = torch.cat([t.reshape(-1) for t in
                       convert.full_state_dict(model).values()])
     if params_path is not None:
@@ -148,6 +269,89 @@ def _model(config_kw, spec_kw, params_path, family="llama_tiny"):
         convert.load_full_state_dict(
             model, {n: torch.tensor(data[n]) for n in data.files})
     return model, mesh, init.numpy()
+
+
+class LiveBytes(TorchDispatchMode):
+    """A dispatch mode that tracks the storages the ops inside it allocate
+    and the most bytes of them alive at once (a storage is alive while any
+    tensor or parameter holds it), and the largest one."""
+
+    def __init__(self):
+        super().__init__()
+        self.storages = {}
+        self.peak = 0
+        self.largest = 0
+
+    def live(self):
+        return sum(n for ref, n in self.storages.values()
+                   if ref() is not None)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in (out if isinstance(out, (tuple, list)) else [out]):
+            if isinstance(t, torch.Tensor) and t.device.type != "meta":
+                try:
+                    st = t.untyped_storage()
+                    key = st.data_ptr()
+                except RuntimeError:    # no storage of its own
+                    continue
+                known = self.storages.get(key)
+                if known is None or known[0]() is not st:
+                    self.storages[key] = (weakref.ref(st), st.nbytes())
+                    self.largest = max(self.largest, st.nbytes())
+        self.peak = max(self.peak, self.live())
+        return out
+
+
+def build_memory_rank(rank, world, spec_kw, config_kw):
+    """The most bytes alive at once while this rank builds f32 llama_tiny
+    (with `config_kw`) on the mesh, beside the bytes of its tp/ep slices
+    (what it holds before FSDP2 shards them further), the largest single
+    tensor allocated, and the largest full parameter of the model."""
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.parallel import MeshSpec, build_mesh
+
+    cfg = gpt.llama_tiny(dtype=torch.float32, **config_kw)
+    mesh = build_mesh(MeshSpec(**spec_kw), device_type="cpu")
+    mode = LiveBytes()
+    with mode:
+        model = gpt.GPT(cfg, device="cpu", seed=0, mesh=mesh)
+    # a DTensor's shape is that of the tp/ep slice FSDP2 shards
+    sliced = sum(p.numel() * p.element_size() for p in model.parameters())
+    full = gpt.GPT(cfg, device="cpu", seed=0)
+    return {"peak": np.array(mode.peak), "sliced": np.array(sliced),
+            "largest": np.array(mode.largest),
+            "largest_param": np.array(max(
+                p.numel() * p.element_size() for p in full.parameters())),
+            "model": np.array(sum(p.numel() * p.element_size()
+                                  for p in full.parameters()))}
+
+
+def _shards_match_unsharded(model, cfg):
+    """Whether each parameter this rank holds (its FSDP2 shard of its tp/ep
+    slice) equals, bit for bit, the same part of the tensor that
+    `GPT(cfg, seed=0)` draws with no mesh: the names that differ."""
+    from torch.distributed.tensor import Shard
+
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.parallel import logical_sharding
+
+    full = dict(gpt.GPT(cfg, device="cpu", seed=0).named_parameters())
+    rules = model.rules.only("tp", "ep")
+    axes = model.param_logical_axes()
+    bad = []
+    for n, p in model.named_parameters():
+        want = full[n].detach()[logical_sharding(model.mesh, rules, axes[n],
+                                                 full[n].shape)]
+        coord = p.device_mesh.get_coordinate()
+        for dim, pl in enumerate(p.placements):
+            if isinstance(pl, Shard):
+                chunks = torch.chunk(want, p.device_mesh.size(dim), pl.dim)
+                want = (chunks[coord[dim]] if coord[dim] < len(chunks)
+                        else want.narrow(pl.dim, 0, 0))
+        if not torch.equal(p.to_local(), want):
+            bad.append(n)
+    return bad
 
 
 def _coords(mesh):
@@ -165,7 +369,8 @@ def train_rank(rank, world, spec_kw, params_path, tokens_path, steps,
     gathered to full, and the weights the seed gave before the load."""
     from ray_tpu_torch.models import convert, training
 
-    model, mesh, init = _model(config_kw or {}, spec_kw, params_path)
+    model, mesh, init = _model(config_kw or {}, spec_kw, params_path,
+                               check_shards=True)
     opt = training.make_optimizer(**opt_kw)
     state = training.init_train_state(model, opt, device="cpu", mesh=mesh)
     step = training.make_train_step(model, opt, device="cpu", mesh=mesh)
@@ -181,7 +386,9 @@ def train_rank(rank, world, spec_kw, params_path, tokens_path, steps,
            for n, t in convert.full_state_dict(model).items()}
     out.update(losses=np.array(losses), grad_norms=np.array(norms),
                tokens=np.array(tokens), aux=np.array(aux), init=init,
-               coords=_coords(mesh))
+               coords=_coords(mesh),
+               shards_not_matching=np.array(model.shards_not_matching,
+                                            dtype=str))
     eval_metrics = training.eval_step_fn(model, device="cpu", mesh=mesh)(
         batch)
     out["eval_loss"] = np.array(float(eval_metrics["loss"]))

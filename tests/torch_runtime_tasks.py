@@ -104,3 +104,36 @@ def tensor_tree_double(tree):
 def make_tensor(n):
     import torch
     return torch.arange(n, dtype=torch.float32).reshape(2, -1).t()
+
+
+def zeros_u8(n):
+    import numpy as np
+    return np.zeros(n, dtype=np.uint8)
+
+
+def nbytes_of(rt_name, refs):
+    rt = importlib.import_module(rt_name)
+    return rt.get(refs[0]).nbytes
+
+
+
+class FixedSampler:
+    """An env runner's `sample` that hands out one recorded batch: drives
+    an algorithm's learning half on a batch sampled elsewhere."""
+
+    def __init__(self, batch, stats):
+        self.batch, self.stats = batch, stats
+
+    def sample(self, weights, num_steps, compute_advantages=True):
+        return self.batch, self.stats
+
+
+def torch_threads():
+    """torch's intra-op thread count in this worker."""
+    import torch
+    return torch.get_num_threads()
+
+
+class TorchThreads:
+    def get(self):
+        return torch_threads()
