@@ -111,12 +111,28 @@ Phases, each fatal on failure (non-zero exit, no result line):
     FSDP_GRAD_NORM_RTOL) and the resumed steps 4-7 equal the uninterrupted
     run's bit for bit; prints the losses beside phase 4's, the step ms
     (device busy under ``--profile``) and the checkpoint's save and restore
-    seconds and bytes.
+    seconds and bytes;
+15. ingest: ``ray_tpu_torch.data.from_numpy`` of 7 batches of 12 rows of
+    seq 1024 (``default_rng(1)``: the first batch is phase 4's tokens) in
+    5 uneven blocks, through one ``map_batches`` stage of worker tasks, on
+    ``ray_tpu_torch.init(num_cpus=4)``. (a) ``Dataset.iter_device_batches``
+    feeds a fresh phase-4 model 2 + 5 steps in this process, one new batch
+    a step: fails unless every batch is on the card and equals its rows bit
+    for bit, the first loss and grad norm equal phase 4's bit for bit,
+    every loss is finite and the launches per step equal phase 4's; prints
+    the step ms, tokens/s, the host ms of each ``next()`` and (under
+    ``--profile``) busy and idle beside phase 4's. (b) phase 14's gang
+    (``TorchTrainer(datasets={"train": ...})``, one ``num_gpus=1`` worker,
+    ``MeshSpec(dp=1, fsdp=1)``) takes its batches from
+    ``get_dataset_shard("train").iter_device_batches``: fails unless its 7
+    losses and grad norms equal (a)'s bit for bit and its launches phase
+    4's; prints the step ms beside phase 14's and the fit's seconds.
 
 ``--profile PATH`` profiles two more steps of each train path and writes
 one table per path (PATH with the path's name before its suffix);
-``--skip-main`` skips the train paths, phases 4-6, 8-11 and 14, and
-phase 13's steps. Prints the
+``--skip-main`` skips the train paths, phases 4-6, 8-11 and 14, phase 13's
+steps and phase 15's (which then checks only both iterators' batches, bit
+for bit on the card). Prints the
 kernels as one JSON line, then the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when
 CUDA is missing or the package is not beside this script.
@@ -203,6 +219,11 @@ ACTOR_PATH = "gpt2_medium_gpu_actor"
 GANG_PATH = "gpt2_medium_gang"
 GANG_STEPS = 7
 GANG_CKPT_AT = 3
+# phase 15: ingest, phase 4's 2 + 5 steps, one new batch from a Dataset each
+INGEST_PATH = "gpt2_medium_ingest"
+INGEST_GANG_PATH = "gpt2_medium_ingest_gang"
+INGEST_BATCHES = 7
+INGEST_BLOCKS = 5
 
 REPLACES = {
     "flash_fwd": "ray_tpu/ops/attention.py:89",
@@ -1688,9 +1709,15 @@ def gang_loop(config):
     ``build_mesh(MeshSpec(**config["mesh"]))``, resumed from the session's
     checkpoint when there is one; a sharded checkpoint after step
     ``ckpt_at``; on the first attempt of a run with ``fail`` an injected
-    error after that checkpoint. Each step reports its loss, grad norm and
-    host ms; the last also the launch counts of this attempt's steps (set
-    to 0 just before them), and two profiled steps when asked."""
+    error after that checkpoint. With ``ingest`` (phase 15(b)) each step
+    takes the next batch of the trainer's "train" dataset shard
+    (``iter_device_batches``) in place of phase 4's tokens. Each step
+    reports its loss, grad norm, host ms and the ms its batch took to come
+    out of the iterator; the last also the launch counts of this attempt's
+    steps (set to 0 just before them), and two profiled steps when
+    asked."""
+    import itertools
+
     import torch
 
     from ray_tpu_torch import models, train
@@ -1714,18 +1741,25 @@ def gang_loop(config):
         resume.to_state_dict(template=state)
         torch.cuda.synchronize()
         restore_s = time.perf_counter() - t0
-    tokens = torch.from_numpy(_tokens(config["batch"], cfg.max_seq_len,
-                                      cfg.vocab_size, seed=1)).cuda()
-    batch = {"tokens": tokens}
+    if config.get("ingest"):
+        batches = train.get_dataset_shard("train").iter_device_batches(
+            batch_size=config["batch"])
+    else:
+        tokens = torch.from_numpy(_tokens(config["batch"], cfg.max_seq_len,
+                                          cfg.vocab_size, seed=1)).cuda()
+        batches = itertools.repeat({"tokens": tokens})
     first = state.step
     torch.cuda.synchronize()
     A.reset_launch_counts()
     while state.step < config["steps"]:
         t0 = time.perf_counter()
+        batch = next(batches)
+        next_ms = (time.perf_counter() - t0) * 1e3
         state, m = step(state, batch)
         info = {"step": state.step, "loss": float(m["loss"]),
                 "grad_norm": float(m["grad_norm"]),
                 "step_ms": (time.perf_counter() - t0) * 1e3,
+                "next_ms": next_ms,
                 "attempt": ctx.attempt, "restore_s": restore_s}
         ckpt = None
         if state.step == config["ckpt_at"]:
@@ -1882,6 +1916,207 @@ def gang_phase(torch, smi, by_path, base, profile_path=None):
     if not all(math.isfinite(x) for x in losses + norms):
         raise SmokeFailure(f"{GANG_PATH}: non-finite loss or grad norm")
     return res
+
+
+# --- phase 15: ingest on the card ------------------------------------------
+
+def ingest_dataset(rd, vocab_size, batch):
+    """Phase 15's data: INGEST_BATCHES batches of `batch` rows of seq 1024
+    from `default_rng(1)` (the first batch is phase 4's tokens) in
+    INGEST_BLOCKS uneven blocks, through one map_batches stage of worker
+    tasks (the blocks travel through the store). Returns (dataset,
+    rows)."""
+    rows = _tokens(INGEST_BATCHES * batch, 1024, vocab_size, seed=1)
+    ds = rd.from_numpy({"tokens": rows}, num_blocks=INGEST_BLOCKS
+                       ).map_batches(lambda b: {"tokens": b["tokens"]})
+    return ds, rows
+
+
+def unequal_batches(torch, batches, rows, batch):
+    """The indices of the yielded batches that are not on the card or not
+    their `batch` rows of `rows` bit for bit (and of the missing ones)."""
+    bad = [i for i, b in enumerate(batches)
+           if list(b) != ["tokens"] or not b["tokens"].is_cuda
+           or not torch.equal(b["tokens"].cpu(), torch.from_numpy(
+               rows[i * batch:(i + 1) * batch]))]
+    return bad + list(range(len(batches), len(rows) // batch))
+
+
+def ingest_phase(torch, A, models, smi, by_path, base, gang_base,
+                 skip_main, profile_path=None):
+    """Phase 15 (see the module docstring): (a) gpt2_medium fed by
+    ``Dataset.iter_device_batches`` in this process, (b) phase 14's gang
+    fed by ``get_dataset_shard("train").iter_device_batches``; `base` is
+    phase 4's result and `gang_base` phase 14's, both None under
+    --skip-main, where only the batches' bit equality on the card runs."""
+    import shutil
+    import tempfile
+
+    import chip_smoke as me
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data as rd
+    from ray_tpu_torch import exceptions
+    from ray_tpu_torch.parallel import MeshSpec
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+
+    cfg = models.gpt2_medium(max_seq_len=1024, remat_policy="dots")
+    batch = base["batch"] if base else 12
+    out = {"batch": batch, "blocks": INGEST_BLOCKS}
+    rt.init(num_cpus=4)
+    try:
+        ds, rows = ingest_dataset(rd, cfg.vocab_size, batch)
+        out["block_rows"] = [len(b["tokens"]) for b in ds.iter_blocks()]
+        if skip_main:
+            for name, batches in (
+                    ("Dataset", ds.iter_device_batches(batch_size=batch)),
+                    ("DataIterator", ds.streaming_split(1)[0]
+                     .iter_device_batches(batch_size=batch))):
+                kept = list(batches)
+                torch.cuda.synchronize()
+                bad = unequal_batches(torch, kept, rows, batch)
+                log(f"{INGEST_PATH}: {name}.iter_device_batches, blocks "
+                    f"{out['block_rows']}: {len(kept)} batches of {batch} "
+                    f"rows on the card, not bit-equal to their rows: {bad}")
+                if bad:
+                    raise SmokeFailure(f"{INGEST_PATH}: {name} batches {bad} "
+                                       "differ from their rows")
+            by_path[INGEST_PATH] = {k: None for k in A.launches}
+            by_path[INGEST_GANG_PATH] = {k: None for k in A.launches}
+            return out
+
+        # (a) in process: a fresh phase-4 model, one new batch a step
+        model = models.GPT(cfg, seed=0)
+        opt = models.make_optimizer(total_steps=INGEST_BATCHES)
+        state = models.init_train_state(model, opt)
+        step = models.make_train_step(model, opt)
+        batches = ds.iter_device_batches(batch_size=batch)
+        kept, metrics, next_ms = [], [], []
+        torch.cuda.synchronize()
+        A.reset_launch_counts()
+        for i in range(INGEST_BATCHES):
+            if i == 2:       # 2 warm-up steps, then the timed window
+                torch.cuda.synchronize()
+                t_timed = time.perf_counter()
+            t0 = time.perf_counter()
+            kept.append(next(batches))
+            next_ms.append((time.perf_counter() - t0) * 1e3)
+            state, m = step(state, kept[-1])
+            metrics.append(m)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t_timed) * 1e3 / (INGEST_BATCHES - 2)
+        counts = dict(A.launches)
+        by_path[INGEST_PATH] = counts
+        bad = unequal_batches(torch, kept, rows, batch)
+        if next(batches, None) is not None:
+            bad.append(INGEST_BATCHES)
+        losses = [float(m["loss"]) for m in metrics]
+        norms = [float(m["grad_norm"]) for m in metrics]
+        per_step = {k: v / INGEST_BATCHES for k, v in counts.items()}
+        tok_s = batch * cfg.max_seq_len / (step_ms / 1e3)
+        out.update({"losses": losses, "grad_norms": norms,
+                    "step_ms": step_ms, "tokens_per_s": tok_s,
+                    "next_ms": next_ms, "launches_per_step": per_step,
+                    "unequal_batches": bad})
+        if profile_path:
+            more = ds.iter_device_batches(batch_size=batch)
+
+            def one_step():
+                nonlocal state
+                state, _ = step(state, next(more))
+
+            path = Path(profile_path)
+            out["profile"] = profile_steps(
+                torch, one_step,
+                path.with_name(f"{path.stem}.{INGEST_PATH}{path.suffix}"),
+                step_ms)
+        del model, state, step, opt, kept, batches, metrics
+        gc.collect()
+        torch.cuda.empty_cache()
+        first_equal = (losses[0], norms[0]) == (base["losses"][0],
+                                                base["grad_norms"][0])
+        log(f"{INGEST_PATH}: Dataset.iter_device_batches(batch_size={batch}) "
+            f"over blocks {out['block_rows']}: losses {losses}; grad norms "
+            f"{norms}; first loss and grad norm equal to phase 4's: "
+            f"{first_equal}; batches not bit-equal to their rows: {bad}")
+        log(f"{INGEST_PATH}: step {step_ms:.1f} ms, {tok_s:.0f} tokens/s "
+            f"(phase 4 {base['step_ms']:.1f} ms, {base['tokens_per_s']:.0f}); "
+            f"host ms per batch in next() {[round(x, 3) for x in next_ms]}"
+            + (f"; device busy {out['profile']['busy_ms']:.2f} ms/step, idle "
+               f"{out['profile']['idle_share']:.3f} (phase 4 busy "
+               f"{base['profile']['busy_ms']:.2f}, idle "
+               f"{base['profile']['idle_share']:.3f})" if profile_path else "")
+            + f"; launches per step {per_step} (phase 4: "
+            f"{base['launches_per_step']}) ({smi})")
+        if bad:
+            raise SmokeFailure(f"{INGEST_PATH}: batches {bad} are not their "
+                               "rows on the card")
+        if not first_equal:
+            raise SmokeFailure(f"{INGEST_PATH}: the first step differs from "
+                               "phase 4's")
+        if not all(math.isfinite(x) for x in losses + norms):
+            raise SmokeFailure(f"{INGEST_PATH}: non-finite loss or grad norm")
+        if per_step != base["launches_per_step"]:
+            raise SmokeFailure(f"{INGEST_PATH}: launches per step {per_step}, "
+                               f"phase 4 {base['launches_per_step']}")
+
+        # (b) phase 14's gang, fed by its dataset shard
+        spec = dict(dp=1, fsdp=1)
+        config = {"mesh": spec, "steps": INGEST_BATCHES, "ckpt_at": None,
+                  "batch": batch, "fail": False, "profile": None,
+                  "ingest": True}
+        storage = tempfile.mkdtemp(prefix="chip_smoke_ingest_")
+        t0 = time.perf_counter()
+        try:
+            trainer = TorchTrainer(
+                me.gang_loop, train_loop_config=config,
+                scaling_config=ScalingConfig(num_workers=1, use_gpu=True,
+                                             mesh=MeshSpec(**spec)),
+                run_config=RunConfig(name="ingest", storage_path=storage),
+                datasets={"train": ds})
+            result = trainer.fit()
+        finally:
+            shutil.rmtree(storage, ignore_errors=True)
+        fit_s = time.perf_counter() - t0
+        if result.error is not None:
+            raise SmokeFailure(f"{INGEST_GANG_PATH}: "
+                               f"{type(result.error).__name__}: "
+                               f"{result.error}")
+    except exceptions.RayTpuError as exc:
+        raise SmokeFailure(f"{INGEST_PATH}: {type(exc).__name__}: {exc}") \
+            from exc
+    finally:
+        rt.shutdown()
+
+    hist = result.metrics_history
+    g_losses = [h["loss"] for h in hist]
+    g_norms = [h["grad_norm"] for h in hist]
+    g_counts = hist[-1]["launches"]
+    by_path[INGEST_GANG_PATH] = g_counts
+    g_per_step = {k: v / hist[-1]["steps_counted"] for k, v in
+                  g_counts.items()}
+    g_step_ms = sorted(h["step_ms"] for h in hist[-5:])[2]
+    out["gang"] = {"losses": g_losses, "grad_norms": g_norms,
+                   "step_ms_median": g_step_ms, "fit_s": fit_s,
+                   "next_ms": [h["next_ms"] for h in hist],
+                   "launches_per_step": g_per_step}
+    equal = (g_losses, g_norms) == (losses, norms)
+    log(f"{INGEST_GANG_PATH}: TorchTrainer(datasets=) on one num_gpus=1 "
+        f"worker, MeshSpec(dp=1, fsdp=1), get_dataset_shard('train')."
+        f"iter_device_batches(batch_size={batch}): losses {g_losses}; grad "
+        f"norms {g_norms}; equal to (a)'s bit for bit: {equal}")
+    log(f"{INGEST_GANG_PATH}: step {g_step_ms:.1f} ms (median of steps 3-7; "
+        f"phase 14 {gang_base['step_ms_median']:.1f}); host ms per batch in "
+        f"next() {[round(h['next_ms'], 3) for h in hist]}; fit {fit_s:.1f} "
+        f"s; launches per step {g_per_step} (phase 4: "
+        f"{base['launches_per_step']}) ({smi})")
+    if len(hist) != INGEST_BATCHES or not equal:
+        raise SmokeFailure(f"{INGEST_GANG_PATH}: the gang's steps differ from "
+                           "(a)'s")
+    if g_per_step != base["launches_per_step"]:
+        raise SmokeFailure(f"{INGEST_GANG_PATH}: launches per step "
+                           f"{g_per_step}, phase 4 "
+                           f"{base['launches_per_step']}")
+    return out
 
 
 def run(args) -> int:
@@ -2060,6 +2295,14 @@ def run(args) -> int:
         main[GANG_PATH] = gang_phase(torch, smi, by_path,
                                      main["gpt2_medium"], args.profile)
 
+    # phase 15: ingest on the card, in process and through the gang, beside
+    # phases 4 and 14 (under --skip-main only the batches' bit equality)
+    gc.collect()
+    torch.cuda.empty_cache()
+    main[INGEST_PATH] = ingest_phase(
+        torch, A, models, smi, by_path, main.get("gpt2_medium"),
+        main.get(GANG_PATH), args.skip_main, args.profile)
+
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name],
                 "launches": by_path["gpt2_medium"][name],
@@ -2095,8 +2338,8 @@ def main() -> int:
                     "write torch.profiler's table to PATH with the path's "
                     "name before the suffix")
     ap.add_argument("--skip-main", action="store_true",
-                    help="skip the train paths, phases 4-6, 8-11 and 14 "
-                    "(debugging)")
+                    help="skip the train paths, phases 4-6, 8-11 and 14 and "
+                    "the steps of phases 13 and 15 (debugging)")
     args = ap.parse_args()
     try:
         return run(args)

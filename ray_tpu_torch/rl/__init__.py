@@ -16,7 +16,9 @@ are the port's numpy copies.
 One export differs from JAX's: ``ReplayBuffer`` is the uniform buffer of
 ``replay_buffers.py`` (JAX exports that one as ``UniformReplayBuffer``,
 which the port exports too); DQN's replay actor is ``dqn.ReplayBuffer``.
-``OfflineDQN`` waits for the port's ``data``.
+``OfflineDQN`` trains ``DQNLearner`` from a ``ray_tpu_torch.data`` Dataset of
+logged transitions, which ``collect_to_dataset`` writes from an env runner
+actor.
 """
 
 from .convert import params_from_jax, params_to_jax  # noqa: F401
@@ -25,6 +27,7 @@ from .env import CartPoleEnv, Env, RandomEnv  # noqa: F401
 from .impala import Impala, ImpalaConfig  # noqa: F401
 from .learner import Learner, LearnerGroup  # noqa: F401
 from .module import DiscretePolicyModule, QNetworkModule  # noqa: F401
+from .offline import OfflineDQN, collect_to_dataset  # noqa: F401
 from .ppo import PPO, PPOConfig  # noqa: F401
 from .replay_buffers import (  # noqa: F401
     PrioritizedReplayBuffer,

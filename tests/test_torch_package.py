@@ -8,6 +8,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -28,6 +29,11 @@ RUNTIME_MODULES = (
         "protocol", "rpc", "runtime_env", "scheduler", "serialization",
         "telemetry", "worker", "worker_bootstrap")),
 )
+# the data package's modules (pyarrow and PIL stay lazy imports in the
+# readers that need them; the card's machine has neither)
+DATA_MODULES = tuple(f"data.{m}" for m in (
+    "aggregate", "block", "dataset", "datasource", "iterator", "read_api",
+    "shuffle", "write_api", "_device"))
 # ray_tpu layers a copied module reaches lazily and the port does not have
 # yet: importing one fails as for any missing module
 NOT_PORTED = {
@@ -59,10 +65,13 @@ def test_import_leaves_jax_and_ray_tpu_out():
             "ray_tpu_torch.train, ray_tpu_torch.train.trainer, "
             "ray_tpu_torch.train.checkpoint, ray_tpu_torch.train.session, "
             "ray_tpu_torch.train.config, ray_tpu_torch.train.result, "
-            + ", ".join(f"ray_tpu_torch.{m}" for m in RUNTIME_MODULES) + "; "
+            "ray_tpu_torch.rl.offline, "
+            + ", ".join(f"ray_tpu_torch.{m}" for m in RUNTIME_MODULES
+                        + DATA_MODULES) + "; "
             "sys.path.insert(0, 'tests'); import torch_dist_worker; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'ray_tpu', 'optax', 'triton')]; "
+            "('jax', 'jaxlib', 'ray_tpu', 'optax', 'triton', 'pyarrow', "
+            "'PIL')]; "
             "print(bad); sys.exit(1 if bad else 0)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(ROOT)
@@ -73,9 +82,11 @@ def test_import_leaves_jax_and_ray_tpu_out():
 
 def test_runtime_import_is_light():
     """The package and the runtime a worker process runs import no torch,
-    JAX or ray_tpu: the ML subpackages load on first attribute access."""
+    JAX or ray_tpu, nor do the data modules whose tasks a worker runs: the
+    ML subpackages load on first attribute access."""
     code = ("import sys, ray_tpu_torch, ray_tpu_torch._private.node, "
-            "ray_tpu_torch._private.worker; "
+            "ray_tpu_torch._private.worker, ray_tpu_torch.data.dataset, "
+            "ray_tpu_torch.data.shuffle, ray_tpu_torch.data.iterator; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'ray_tpu', 'torch')]; print(bad); "
             "import ray_tpu_torch as rt; rt.models, rt.rl, rt.train; "
@@ -196,6 +207,30 @@ def test_entry_points_default_to_cuda():
     runner = rl.EnvRunner(rl.CartPoleEnv, cfg, device="cpu")
     assert runner.device.type == "cpu"
     assert next(runner.module.parameters()).device.type == "cpu"
+
+    # device batches: the call raises (no runtime is needed to refuse),
+    # never yields CPU tensors unless asked
+    from ray_tpu_torch import data
+
+    ds = data.range(8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ds.iter_device_batches(batch_size=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        data.DataIterator(None).iter_device_batches(batch_size=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rl.OfflineDQN(_Logged(), observation_size=4, action_size=2)
+
+
+class _Logged:
+    """A dataset of one block of logged transitions, without a runtime."""
+
+    def iter_blocks(self):
+        rng = np.random.default_rng(0)
+        yield {"obs": rng.normal(size=(4, 4)).astype(np.float32),
+               "actions": np.zeros(4, np.int32),
+               "rewards": np.ones(4, np.float32),
+               "next_obs": rng.normal(size=(4, 4)).astype(np.float32),
+               "dones": np.zeros(4, bool)}
 
 
 def test_kernel_sources_ship():
