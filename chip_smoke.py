@@ -127,12 +127,36 @@ Phases, each fatal on failure (non-zero exit, no result line):
     ``get_dataset_shard("train").iter_device_batches``: fails unless its 7
     losses and grad norms equal (a)'s bit for bit and its launches phase
     4's; prints the step ms beside phase 14's and the fit's seconds.
+16. the host collectives, MeshGroup, Tune and user metrics on
+    ``ray_tpu_torch.init(num_cpus=4)``. (a) the driver, on the card, is
+    rank 0 of a ``ray_tpu_torch.comm`` group with two CPU actor ranks:
+    phase 4's seed-0 gpt2_medium parameters flattened into one CUDA f32
+    tensor (1.419 GB), then a bf16 copy (0.71 GB), each broadcast from the
+    driver, all-reduced (sum, each rank contributing what it holds),
+    reduce-scattered and all-gathered (a 64 MB slice), sent to rank 1 and
+    received back; fails unless every rank's bytes are equal (the actors
+    return digests), each result equals its plain version on the card (3x
+    the input rounded once) and the driver's results are CUDA tensors of
+    the input's dtype; prints each op's seconds and GB/s beside phase 13's
+    put and get. Then a ``mesh_group`` host with one CPU and one GPU in its
+    bundle reports its slots and builds ``build_local_mesh()`` on one NCCL
+    rank. (b) ``tune.Tuner`` over ``grid_search`` of two learning rates
+    (make_optimizer's default and 10x), one trial at a time, each trial
+    running phase 14's loop through a one-worker ``TorchTrainer`` on the
+    card (no checkpoint, no failure): fails unless the trial at the
+    default rate gives phase 14's 7 losses and grad norms bit for bit, both
+    first losses are equal, ``get_best_result()`` has the lower final loss
+    and the trial's gang launched phase 4's counts a step. (c) each trial
+    records its step ms in a ``util.metrics.Histogram``; fails unless the
+    driver reads a count of 7 for each trial through ``metrics_snapshot()``
+    and 14 through ``export_prometheus()``. Prints the phase's seconds.
 
 ``--profile PATH`` profiles two more steps of each train path and writes
 one table per path (PATH with the path's name before its suffix);
-``--skip-main`` skips the train paths, phases 4-6, 8-11 and 14, phase 13's
-steps and phase 15's (which then checks only both iterators' batches, bit
-for bit on the card). Prints the
+``--skip-main`` skips the train paths, phases 4-6, 8-11, 14 and 16(b)-(c),
+phase 13's steps and phase 15's (which then checks only both iterators'
+batches, bit for bit on the card); phase 16(a) then moves 64 MB of seeded
+f32 in place of the parameters. Prints the
 kernels as one JSON line, then the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when
 CUDA is missing or the package is not beside this script.
@@ -224,6 +248,16 @@ INGEST_PATH = "gpt2_medium_ingest"
 INGEST_GANG_PATH = "gpt2_medium_ingest_gang"
 INGEST_BATCHES = 7
 INGEST_BLOCKS = 5
+# phase 16: the host collectives with the driver on the card as rank 0 of
+# COMM_WORLD (the others CPU actors), the reducescatter/allgather slice, the
+# ops' explicit timeout (1.4 GB is far over collective_timeout_s's 60 s
+# budget at the host's rates); Tune's path and the trials' step histogram
+COMM_GROUP = "chip_smoke_comm"
+COMM_WORLD = 3
+COMM_SLICE_MB = 64
+COMM_TIMEOUT_S = 600.0
+TUNE_PATH = "gpt2_medium_tune_trial"
+TUNE_HIST = "chip_smoke_trial_step_ms"
 
 REPLACES = {
     "flash_fwd": "ray_tpu/ops/attention.py:89",
@@ -1730,7 +1764,9 @@ def gang_loop(config):
     cfg = models.gpt2_medium(max_seq_len=1024, remat_policy="dots")
     mesh = build_mesh(MeshSpec(**config["mesh"]), device_type="cuda")
     model = models.GPT(cfg, seed=0, mesh=mesh)
-    opt = models.make_optimizer(total_steps=config["steps"])
+    opt = models.make_optimizer(
+        total_steps=config["steps"],
+        **({"learning_rate": config["lr"]} if "lr" in config else {}))
     state = models.init_train_state(model, opt, mesh=mesh)
     step = models.make_train_step(model, opt, mesh=mesh)
     restore_s = None
@@ -2119,6 +2155,398 @@ def ingest_phase(torch, A, models, smi, by_path, base, gang_base,
     return out
 
 
+# --- phase 16: host collectives, MeshGroup, Tune and user metrics ----------
+
+class CommRank:
+    """Phase 16(a)'s CPU rank of the host collective group (the driver,
+    on the card, is rank 0): the same ops as the driver, in the same
+    order, on CPU torch tensors; returns a digest of each result and its
+    seconds, never the tensors. (The hook `CollectiveActorMixin` gives is
+    taken from it: this module imports no package at its top, so it
+    cannot subclass it.)"""
+
+    def _rtpu_init_collective(self, world_size, rank, group_name):
+        from ray_tpu_torch.comm.collective import CollectiveActorMixin
+        CollectiveActorMixin._rtpu_init_collective(self, world_size, rank,
+                                                   group_name)
+
+    def run(self, dtype_name, n, rows):
+        import hashlib
+
+        import torch
+
+        from ray_tpu_torch.comm import collective as col
+
+        dtype = getattr(torch, dtype_name)
+        rank = col.get_rank(COMM_GROUP)
+        kw = {"group_name": COMM_GROUP, "timeout": COMM_TIMEOUT_S}
+
+        def digest(t):
+            t = t.contiguous().view(torch.uint8)
+            return (hashlib.sha256(t.numpy()).hexdigest(), t.numel())
+
+        out, secs = {}, {}
+
+        def timed(op, fn):
+            # every rank starts each op together (the driver does the same)
+            col.barrier(**kw)
+            t0 = time.perf_counter()
+            result = fn()
+            secs[op] = time.perf_counter() - t0
+            return result
+
+        held = timed("broadcast", lambda: col.broadcast(
+            torch.empty(0, dtype=dtype), src_rank=0, **kw))
+        out["broadcast"] = digest(held)
+        total = timed("allreduce", lambda: col.allreduce(held, **kw))
+        out["allreduce"] = digest(total)
+        part = held[:rows * COMM_WORLD].reshape(COMM_WORLD, rows)
+        mine = timed("reducescatter", lambda: col.reducescatter(part, **kw))
+        out["reducescatter"] = digest(mine)
+        parts = timed("allgather", lambda: col.allgather(mine, **kw))
+        out["allgather"] = digest(torch.cat(parts))
+        col.barrier(**kw)
+        if rank == 1:
+            back = col.recv(0, group_name=COMM_GROUP,
+                            timeout=COMM_TIMEOUT_S)
+            out["recv"] = (digest(back), str(back.dtype), back.device.type)
+            col.send(back, 0, group_name=COMM_GROUP)
+        out["dtypes"] = sorted({str(t.dtype) for t in
+                                (held, total, mine, *parts)})
+        return out, secs
+
+
+class MeshHost:
+    """Phase 16(a)'s MeshGroup host (one CPU and one GPU in its bundle):
+    its slots, and a one-rank NCCL mesh from `build_local_mesh()` whose
+    group sums a tensor on the card. (The methods `SPMDWorkerBase` gives
+    a host are taken from it, as `CommRank` takes its hook.)"""
+
+    def _rtpu_setup_mesh(self, rank, world, coll_group=None):
+        from ray_tpu_torch.comm.device_mesh import SPMDWorkerBase
+        SPMDWorkerBase._rtpu_setup_mesh(self, rank, world, coll_group)
+
+    def report(self):
+        import torch
+        import torch.distributed as dist
+
+        import ray_tpu_torch as rt
+        from ray_tpu_torch.comm.device_mesh import SPMDWorkerBase
+        from ray_tpu_torch.parallel import MeshSpec
+
+        ids = rt.get_runtime_context().get_accelerator_ids()
+        mesh = SPMDWorkerBase.build_local_mesh(self, MeshSpec(dp=1, fsdp=1))
+        x = torch.full((4,), 2.0, device="cuda")
+        dist.all_reduce(x)
+        return {"accelerator_ids": ids,
+                "cuda_visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                "backend": dist.get_backend(), "world": dist.get_world_size(),
+                "mesh": dict(mesh.shape), "sum": x.tolist(),
+                "device": torch.cuda.get_device_name(0)}
+
+
+def comm_phase(torch, models, smi, skip_main, runtime):
+    """Phase 16(a) (see the module docstring): the host collectives with a
+    CUDA rank at gpt2_medium's width, then a MeshGroup host on the card;
+    `runtime` is phase 13's result, whose put/get rates are printed
+    beside."""
+    import hashlib
+
+    import chip_smoke as me
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import exceptions
+    from ray_tpu_torch.comm import collective as col
+    from ray_tpu_torch.comm import mesh_group
+
+    if skip_main:
+        gen = torch.Generator().manual_seed(0)
+        flat = torch.randn(RUNTIME_SKIP_MAIN_MB << 18,
+                           generator=gen).cuda()
+        what = f"{RUNTIME_SKIP_MAIN_MB} MB of seeded f32"
+    else:
+        cfg = models.gpt2_medium(max_seq_len=1024, remat_policy="dots")
+        model = models.GPT(cfg, seed=0)
+        flat = torch.cat([p.detach().reshape(-1)
+                          for p in model.parameters()])
+        del model
+        what = f"phase 4's seed-0 gpt2_medium parameters ({cfg.n_params} f32)"
+    torch.cuda.synchronize()
+
+    def digest(t):
+        t = t.contiguous().cpu().view(torch.uint8)
+        return (hashlib.sha256(t.numpy()).hexdigest(), t.numel())
+
+    out = {"input": what, "ops": {}}
+    kw = {"group_name": COMM_GROUP, "timeout": COMM_TIMEOUT_S}
+    rt.init(num_cpus=4)
+    try:
+        ranks = [rt.remote(num_cpus=1)(me.CommRank).remote()
+                 for _ in range(COMM_WORLD - 1)]
+        joins = [r._rtpu_init_collective.remote(COMM_WORLD, i + 1,
+                                                COMM_GROUP)
+                 for i, r in enumerate(ranks)]
+        col.init_collective_group(COMM_WORLD, 0, group_name=COMM_GROUP)
+        rt.get(joins, timeout=300)
+        for x in (flat, flat.to(torch.bfloat16)):
+            name = str(x.dtype).split(".")[-1]
+            n, nbytes = x.numel(), x.numel() * x.element_size()
+            rows = (min(COMM_SLICE_MB << 20, nbytes) // x.element_size()
+                    // COMM_WORLD)
+            refs = [r.run.remote(name, n, rows) for r in ranks]
+            secs, res = {}, {}
+
+            def timed(op, fn):
+                col.barrier(**kw)     # every rank starts each op together
+                t0 = time.perf_counter()
+                r = fn()
+                torch.cuda.synchronize()
+                secs[op] = time.perf_counter() - t0
+                res[op] = r
+                return r
+
+            held = timed("broadcast", lambda: col.broadcast(x, src_rank=0,
+                                                            **kw))
+            total = timed("allreduce", lambda: col.allreduce(held, **kw))
+            part = held[:rows * COMM_WORLD].reshape(COMM_WORLD, rows)
+            mine = timed("reducescatter",
+                         lambda: col.reducescatter(part, **kw))
+            parts = timed("allgather", lambda: col.allgather(mine, **kw))
+            col.barrier(**kw)
+            t0 = time.perf_counter()
+            col.send(x, 1, group_name=COMM_GROUP)
+            back = col.recv(1, group_name=COMM_GROUP, timeout=COMM_TIMEOUT_S)
+            secs["send_recv"] = time.perf_counter() - t0
+            theirs = rt.get(refs, timeout=COMM_TIMEOUT_S)
+            results = (held, total, mine, *parts)
+            mine_d = {"broadcast": digest(held), "allreduce": digest(total),
+                      "reducescatter": digest(mine),
+                      "allgather": digest(torch.cat(parts))}
+            # every rank's bytes: the driver's, rank 1's and rank 2's
+            # (reducescatter: each rank its own row, so the rows gathered)
+            same = {op: all(d[op] == mine_d[op] for d, _ in theirs)
+                    for op in ("broadcast", "allreduce", "allgather")}
+            # the plain version of each result on the card: the sum of 3
+            # equal contributions is 3x rounded once, in f32 and in bf16
+            want = x * COMM_WORLD
+            exact = {"broadcast": torch.equal(held, x),
+                     "allreduce": torch.equal(total, want),
+                     "reducescatter": torch.equal(
+                         mine, want[:rows * COMM_WORLD].reshape(
+                             COMM_WORLD, rows)[0:1]),
+                     "allgather": torch.equal(
+                         torch.cat(parts),
+                         want[:rows * COMM_WORLD].reshape(COMM_WORLD, rows)),
+                     "send_recv": torch.equal(back, x.cpu())}
+            on_card = all(t.is_cuda and t.dtype == x.dtype for t in results)
+            on_card &= all(d["dtypes"] == [str(x.dtype)] for d, _ in theirs)
+            recv_d = theirs[0][0]["recv"]
+            moved = {"broadcast": nbytes, "allreduce": nbytes,
+                     "reducescatter": rows * COMM_WORLD * x.element_size(),
+                     "allgather": rows * COMM_WORLD * x.element_size(),
+                     "send_recv": 2 * nbytes}
+            rates = {op: moved[op] / s / 1e9 for op, s in secs.items()}
+            out["ops"][name] = {
+                "bytes": nbytes, "seconds": secs, "gb_s": rates,
+                "cpu_rank_seconds": [s for _, s in theirs],
+                "ranks_equal": same, "equal_to_plain": exact,
+                "results_on_card": on_card,
+                "back_dtype_device": (str(back.dtype), back.device.type),
+                "recv_at_rank1": recv_d[1:]}
+            log(f"comm: {name} {nbytes / 1e9:.3f} GB ({what}"
+                f"{'' if x is flat else ', as bf16'}); driver rank "
+                f"0 on the card with {COMM_WORLD - 1} CPU actor ranks: "
+                + ", ".join(f"{op} {s:.2f} s ({rates[op]:.2f} GB/s)"
+                            for op, s in secs.items())
+                + f" (reducescatter and allgather of a {COMM_SLICE_MB} MB "
+                f"slice; send+recv a round trip to rank 1); every rank's "
+                f"bytes equal {same}; equal to the plain version on the card "
+                f"{exact}; results CUDA {x.dtype}: {on_card}; rank 1 got "
+                f"{recv_d[1:]}, back {back.dtype} on {back.device.type} "
+                f"({smi})")
+            p13 = runtime["params"]
+            log(f"comm: beside phase 13's {p13['bytes'] / 1e9:.3f} GB put "
+                f"{p13['put_gb_s']:.2f} and get {p13['get_gb_s']:.2f} GB/s; "
+                f"the host copies into fresh memory at "
+                f"{p13['host_copy_gb_s']['anon']:.2f} GB/s, into a fresh "
+                f"/dev/shm file at {p13['host_copy_gb_s']['to_shm']:.2f}")
+            if not (all(same.values()) and all(exact.values()) and on_card):
+                raise SmokeFailure(f"comm: {name}: ranks equal {same}, plain "
+                                   f"{exact}, on the card {on_card}")
+            if recv_d[0] != digest(x) or recv_d[1:] != (str(x.dtype), "cpu"):
+                raise SmokeFailure(f"comm: {name}: rank 1 received {recv_d}")
+            del held, total, mine, parts, back, results, want
+            torch.cuda.empty_cache()
+        col.destroy_collective_group(COMM_GROUP)
+        group = mesh_group(rt.remote(num_cpus=1)(me.MeshHost), num_hosts=1,
+                           resources_per_host={"CPU": 1, "GPU": 1})
+        (rep,) = group.run("report")
+        group.shutdown()
+        out["mesh_group"] = rep
+        log(f"comm: mesh_group(num_hosts=1, resources_per_host={{'CPU': 1, "
+            f"'GPU': 1}}): host {rep}")
+        if (rep["accelerator_ids"] != {"GPU": [0]} or rep["cuda_visible"]
+                != "0" or rep["backend"] != "nccl" or rep["world"] != 1
+                or rep["sum"] != [2.0] * 4):
+            raise SmokeFailure(f"comm: the MeshGroup host reports {rep}")
+    except exceptions.RayTpuError as exc:
+        raise SmokeFailure(f"comm: {type(exc).__name__}: {exc}") from exc
+    finally:
+        rt.shutdown()
+    return out
+
+
+def tune_trainable(config):
+    """Phase 16(b)'s trainable, in a trial's actor (which holds no card):
+    phase 14's gang_loop through a one-worker TorchTrainer on the card at
+    the trial's learning rate; each row of the gang's metrics history goes
+    to ``tune.report``, and its step ms into a user Histogram (16(c))."""
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.parallel import MeshSpec
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+    from ray_tpu_torch.util import metrics
+
+    step_ms = metrics.Histogram(
+        TUNE_HIST, "phase 16(b): a trial's gang step (ms)",
+        boundaries=(50.0, 100.0, 200.0, 400.0, 800.0, 1600.0),
+        tag_keys=("lr",))
+    spec = dict(dp=1, fsdp=1)
+    loop_config = {"mesh": spec, "steps": GANG_STEPS, "ckpt_at": None,
+                   "batch": config["batch"], "fail": False, "profile": None,
+                   "lr": config["lr"]}
+    t0 = time.perf_counter()
+    result = TorchTrainer(
+        gang_loop, train_loop_config=loop_config,
+        scaling_config=ScalingConfig(num_workers=1, use_gpu=True,
+                                     mesh=MeshSpec(**spec)),
+        run_config=RunConfig(name=f"gang_lr{config['lr']:g}",
+                             storage_path=config["storage"])).fit()
+    fit_s = time.perf_counter() - t0
+    if result.error is not None:
+        raise result.error
+    for row in result.metrics_history:
+        step_ms.observe(row["step_ms"], tags={"lr": f"{config['lr']:g}"})
+        tune.report({**row, "fit_s": fit_s})
+    # flushes this process's samples to the control plane now: the trial's
+    # actor is killed as soon as this returns
+    metrics.metrics_snapshot()
+
+
+def tune_phase(torch, smi, by_path, base, gang_base):
+    """Phase 16(b) and (c) (see the module docstring); `base` is phase 4's
+    result and `gang_base` phase 14's."""
+    import inspect
+    import shutil
+    import tempfile
+
+    import chip_smoke as me
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import exceptions, models, tune
+    from ray_tpu_torch.train import RunConfig
+    from ray_tpu_torch.util import metrics
+
+    lr = inspect.signature(models.make_optimizer).parameters[
+        "learning_rate"].default
+    storage = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    rt.init(num_cpus=4)
+    try:
+        t0 = time.perf_counter()
+        grid = tune.Tuner(
+            me.tune_trainable,
+            param_space={"lr": tune.grid_search([lr, 10 * lr]),
+                         "batch": base["batch"], "storage": storage},
+            tune_config=tune.TuneConfig(metric="loss", mode="min",
+                                        max_concurrent_trials=1),
+            run_config=RunConfig(name="tune", storage_path=storage)).fit()
+        tune_s = time.perf_counter() - t0
+        errors = [str(r.error) for r in grid if r.error is not None]
+        if errors:
+            raise SmokeFailure(f"{TUNE_PATH}: trials failed: {errors}")
+        key = TUNE_HIST
+        deadline = time.monotonic() + 30
+        while True:
+            snap = metrics.metrics_snapshot()
+            counts = {dict(t)["lr"]: h["count"]
+                      for (n, t), h in snap.get("hists", {}).items()
+                      if n == key}
+            if sum(counts.values()) >= 2 * GANG_STEPS \
+                    or time.monotonic() > deadline:
+                break
+            time.sleep(0.5)
+        text = metrics.export_prometheus()
+    except exceptions.RayTpuError as exc:
+        raise SmokeFailure(f"{TUNE_PATH}: {type(exc).__name__}: {exc}") \
+            from exc
+    finally:
+        rt.shutdown()
+        shutil.rmtree(storage, ignore_errors=True)
+
+    trials = {}
+    for res, rate in zip(grid, (lr, 10 * lr)):
+        hist = res.metrics_history
+        trials[rate] = {
+            "losses": [h["loss"] for h in hist],
+            "grad_norms": [h["grad_norm"] for h in hist],
+            "step_ms_median": sorted(h["step_ms"] for h in hist[-5:])[2],
+            "fit_s": hist[-1]["fit_s"],
+            "launches_per_step": {k: v / hist[-1]["steps_counted"]
+                                  for k, v in hist[-1]["launches"].items()},
+            "launches": hist[-1]["launches"]}
+    base_trial = trials[lr]
+    by_path[TUNE_PATH] = base_trial["launches"]
+    finals = {rate: t["losses"][-1] for rate, t in trials.items()}
+    best = grid.get_best_result()
+    best_rate = min(finals, key=finals.get)
+    prom_count = sum(int(float(ln.rsplit(" ", 1)[1]))
+                     for ln in text.splitlines()
+                     if ln.startswith(f"{key}_count"))
+    out = {"trials": {f"{r:g}": t for r, t in trials.items()},
+           "tune_s": tune_s, "best_final_loss": best.metrics["loss"],
+           "histogram_counts": counts, "prometheus_count": prom_count}
+    equal14 = (base_trial["losses"], base_trial["grad_norms"]) == (
+        gang_base["losses"], gang_base["grad_norms"])
+    first_equal = len({t["losses"][0] for t in trials.values()}) == 1
+    want = base["launches_per_step"]
+    log(f"{TUNE_PATH}: Tuner over grid_search(lr=[{lr:g}, {10 * lr:g}]), "
+        f"max_concurrent_trials=1, each trial a one-worker TorchTrainer "
+        f"(num_gpus=1, MeshSpec(dp=1, fsdp=1)) running phase 14's loop: "
+        + "; ".join(f"lr {r:g}: losses {t['losses']}, grad norms "
+                    f"{t['grad_norms']}" for r, t in trials.items()))
+    log(f"{TUNE_PATH}: the phase-14-rate trial equal to phase 14 bit for "
+        f"bit: {equal14}; first losses equal: {first_equal}; best result's "
+        f"final loss {best.metrics['loss']} (lowest final: lr {best_rate:g}, "
+        f"{finals[best_rate]}); step ms (median of steps 3-7) "
+        + ", ".join(f"lr {r:g} {t['step_ms_median']:.1f}"
+                    for r, t in trials.items())
+        + f" beside phase 14's {gang_base['step_ms_median']:.1f}; fit s "
+        + ", ".join(f"lr {r:g} {t['fit_s']:.1f}" for r, t in trials.items())
+        + f" beside phase 14's {gang_base['fit_s']['whole']:.1f}; tuning "
+        f"{tune_s:.1f} s; launches per step in the trial's gang "
+        f"{base_trial['launches_per_step']} (phase 4: {want}) ({smi})")
+    log(f"{TUNE_PATH}: util.metrics Histogram {key} recorded in the trials: "
+        f"count by trial {counts} through metrics_snapshot(), "
+        f"{prom_count} through export_prometheus(); steps reported "
+        f"{2 * GANG_STEPS}")
+    if not equal14:
+        raise SmokeFailure(f"{TUNE_PATH}: the trial at phase 14's rate "
+                           "differs from phase 14")
+    if not first_equal:
+        raise SmokeFailure(f"{TUNE_PATH}: the trials' first losses differ")
+    if best.metrics["loss"] != finals[best_rate]:
+        raise SmokeFailure(f"{TUNE_PATH}: get_best_result() has final loss "
+                           f"{best.metrics['loss']}, the lowest is "
+                           f"{finals[best_rate]}")
+    if any(t["launches_per_step"] != want for t in trials.values()):
+        raise SmokeFailure(f"{TUNE_PATH}: launches per step "
+                           f"{[t['launches_per_step'] for t in trials.values()]}"
+                           f", phase 4 {want}")
+    if (counts != {f"{r:g}": GANG_STEPS for r in trials}
+            or prom_count != 2 * GANG_STEPS):
+        raise SmokeFailure(f"{TUNE_PATH}: the step-ms histogram counts "
+                           f"{counts} / {prom_count}, steps reported "
+                           f"{2 * GANG_STEPS}")
+    return out
+
+
 def run(args) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2303,6 +2731,21 @@ def run(args) -> int:
         torch, A, models, smi, by_path, main.get("gpt2_medium"),
         main.get(GANG_PATH), args.skip_main, args.profile)
 
+    # phase 16: the host collectives with a CUDA rank and a MeshGroup host on
+    # the card (at 64 MB under --skip-main), then Tune trials training on the
+    # card with a user histogram (skipped under --skip-main)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    comm = comm_phase(torch, models, smi, args.skip_main, runtime)
+    if args.skip_main:
+        by_path[TUNE_PATH] = {k: None for k in A.launches}
+    else:
+        main[TUNE_PATH] = tune_phase(torch, smi, by_path,
+                                     main["gpt2_medium"], main[GANG_PATH])
+    phase16_s = time.perf_counter() - t0
+    log(f"phase 16: {phase16_s:.1f} s")
+
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name],
                 "launches": by_path["gpt2_medium"][name],
@@ -2320,7 +2763,8 @@ def run(args) -> int:
                        "readings": {k: r["readings"]
                                     for k, r in results.items()},
                        "model_check": model, "ring": ring,
-                       "main": main, "rl": rl_out, "runtime": runtime},
+                       "main": main, "rl": rl_out, "runtime": runtime,
+                       "comm": comm, "phase16_s": phase16_s},
                       f, indent=1)
     log(json.dumps({"kernels": kernels}))
     log(smi)
@@ -2338,8 +2782,8 @@ def main() -> int:
                     "write torch.profiler's table to PATH with the path's "
                     "name before the suffix")
     ap.add_argument("--skip-main", action="store_true",
-                    help="skip the train paths, phases 4-6, 8-11 and 14 and "
-                    "the steps of phases 13 and 15 (debugging)")
+                    help="skip the train paths, phases 4-6, 8-11, 14 and "
+                    "16(b)-(c) and the steps of phases 13 and 15 (debugging)")
     args = ap.parse_args()
     try:
         return run(args)

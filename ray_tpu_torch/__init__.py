@@ -10,14 +10,17 @@ on hand-written CUDA flash kernels and ring attention over them (``ops``),
 on one device or over a dp x fsdp x tp x sp mesh (``parallel``), and the RL
 compute core (``rl``: the policy and Q modules, the PPO, V-trace and
 double-DQN learners, GAE, replay buffers and the env runners' sampling),
-the gang trainer (``train``) and streaming datasets whose device batches
-land on the card as torch tensors (``data``).
+the gang trainer (``train``) and its hyperparameter search (``tune``),
+streaming datasets whose device batches land on the card as torch tensors
+(``data``), and the host collectives with ``MeshGroup`` (``comm``), which
+take torch tensors, CUDA and bf16 ones included.
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``; callers that sample on the CPU as the JAX runners do pass
 it to the env runners.
 
-The ML subpackages and ``data`` are imported lazily, on first attribute
-access: the runtime imports no torch, so worker processes stay light.
+The ML subpackages, ``data``, ``comm`` and ``tune`` are imported lazily, on
+first attribute access: the runtime imports no torch, so worker processes
+stay light.
 """
 
 from __future__ import annotations
@@ -42,7 +45,8 @@ from .runtime_context import get_runtime_context  # noqa: F401
 
 __version__ = "0.1.0"
 
-_LAZY_SUBPACKAGES = ("data", "models", "ops", "parallel", "rl", "train")
+_LAZY_SUBPACKAGES = ("comm", "data", "models", "ops", "parallel", "rl",
+                     "train", "tune")
 
 
 def __getattr__(name: str):

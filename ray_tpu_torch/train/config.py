@@ -9,9 +9,10 @@ the port's `MeshSpec`: the mesh the gang's process group is cut into.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import TYPE_CHECKING, Dict, Optional
 
-from ..parallel.mesh import MeshSpec
+if TYPE_CHECKING:   # the parallel package imports torch; the trainer's
+    from ..parallel.mesh import MeshSpec   # driver side never needs it
 
 
 @dataclasses.dataclass

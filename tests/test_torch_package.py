@@ -34,6 +34,11 @@ RUNTIME_MODULES = (
 DATA_MODULES = tuple(f"data.{m}" for m in (
     "aggregate", "block", "dataset", "datasource", "iterator", "read_api",
     "shuffle", "write_api", "_device"))
+# the host collectives, Tune and the rest of util/: none imports torch
+HOST_MODULES = (
+    "comm", "comm.collective", "comm.device_mesh", "tune", "tune.tuner",
+    "tune.search", "tune.searcher", "tune.schedulers", "tune.result_grid",
+    "util.metrics", "util.multiprocessing", "util.joblib_backend")
 # ray_tpu layers a copied module reaches lazily and the port does not have
 # yet: importing one fails as for any missing module
 NOT_PORTED = {
@@ -67,7 +72,7 @@ def test_import_leaves_jax_and_ray_tpu_out():
             "ray_tpu_torch.train.config, ray_tpu_torch.train.result, "
             "ray_tpu_torch.rl.offline, "
             + ", ".join(f"ray_tpu_torch.{m}" for m in RUNTIME_MODULES
-                        + DATA_MODULES) + "; "
+                        + DATA_MODULES + HOST_MODULES) + "; "
             "sys.path.insert(0, 'tests'); import torch_dist_worker; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ray_tpu', 'optax', 'triton', 'pyarrow', "
@@ -92,6 +97,29 @@ def test_runtime_import_is_light():
             "import ray_tpu_torch as rt; rt.models, rt.rl, rt.train; "
             "from ray_tpu_torch import ops, parallel; "
             "sys.exit(1 if bad or 'torch' not in sys.modules else 0)")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_comm_and_tune_import_leave_torch_out():
+    """The host collectives, Tune, the metrics and the pool and joblib
+    shims import no torch, as lazy subpackages (`rt.comm`, `rt.tune`) or
+    directly, and the train package they reach stays torch-free too: a
+    worker that runs numpy collectives or a trial's controller stays
+    light, and numpy arrays go through the collectives' ingest and
+    output without it. torch loads when a tensor arrives."""
+    code = ("import sys, ray_tpu_torch as rt; rt.comm, rt.tune; "
+            + "; ".join(f"import ray_tpu_torch.{m}" for m in HOST_MODULES)
+            + "; import ray_tpu_torch.train, numpy as np; "
+            "from ray_tpu_torch.comm import collective as c; "
+            "c._as_caller(c._to_numpy(np.ones(3)), np.ones(3)); "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('torch', 'jax', 'ray_tpu')]; print(bad); "
+            "import torch; a = c._to_numpy(torch.ones(2, dtype=torch.bfloat16)); "
+            "sys.exit(1 if bad or a.dtype != c._BF16 else 0)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(ROOT)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
