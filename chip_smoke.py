@@ -150,13 +150,51 @@ Phases, each fatal on failure (non-zero exit, no result line):
     records its step ms in a ``util.metrics.Histogram``; fails unless the
     driver reads a count of 7 for each trial through ``metrics_snapshot()``
     and 14 through ``export_prometheus()``. Prints the phase's seconds.
+17. serving: a deployment written here (``GPT2Server``: the package has no
+    model server) serves gpt2_medium from seed 0 in one replica with
+    ``num_gpus=1`` and ``max_concurrent_queries=16``, batching concurrent
+    requests with ``@serve.batch(max_batch_size=12,
+    batch_wait_timeout_s=0.02)``: a batch right-pads its prompts to the
+    longest rounded up to 128, runs ``model.apply`` under
+    ``inference_mode`` and answers each prompt's f32 logits at its last
+    position as a CPU tensor; on ``ray_tpu_torch.init(num_cpus=4)``. (a)
+    one request carrying phase 4's first batch [12, 1024]: fails unless the
+    replica's logits equal the driver's ``model.apply`` of the same tokens
+    bit for bit, the driver's forward through the kernel is within
+    SERVE_TOL of the same forward through the plain attention, and the
+    replica's process launched the forward kernel 24 times (one a layer)
+    and dQ and dK/dV none (read there through the replica's
+    ``call_method``). (b) 96 single-prompt requests (lengths 128-1024 and
+    tokens from ``default_rng(2)``) from 16 closed-loop client threads
+    through the handle, each answer within SERVE_TOL of the driver's
+    forward of its prompt alone (batch 1, unpadded), the argmax equal where
+    the top-2 margin exceeds 2 x atol; prints requests/s, prompt tokens/s,
+    p50 and p99 latency, the batches formed (the replica's forwards and the
+    access log's rows) and, under ``--profile``, the replica's device busy
+    a batch. (c) 8 of (b)'s prompts as JSON through ``serve.start_http``,
+    answers as lists within SERVE_TOL. (d) ``serve.delete`` and
+    ``serve.run`` again: the new replica gets the card's slot and answers
+    (a) bit-equal. (e) ``@serve.multiplexed(max_num_models_per_replica=1)``
+    over seeds 0 and 1: loading seed 1 evicts seed 0, the replica's
+    ``torch.cuda.memory_allocated()`` after a gc falls back to one model's
+    bytes within SERVE_MUX_SLACK, and each seed's answer equals a fresh
+    driver model's bit for bit. (f) a two-step ``workflow.run`` (the first
+    step a ``num_gpus=1`` task computing (a)'s logits, the second reducing
+    them on the CPU) equal to (a)'s argmax and max, and its rerun reading
+    the stored output (the step ran once); then a ``StandardAutoscaler``
+    over ``FakeNodeProvider`` on a ``Cluster`` whose head has no GPU
+    scales a ``{"CPU": 2, "GPU": 1}`` node type up for a queued
+    ``num_gpus=1`` task, which sees slot 0 and the card and runs one flash
+    forward within phase 2's limits of its plain version, and drains the
+    node when it is idle. Prints the phase's seconds.
 
 ``--profile PATH`` profiles two more steps of each train path and writes
-one table per path (PATH with the path's name before its suffix);
-``--skip-main`` skips the train paths, phases 4-6, 8-11, 14 and 16(b)-(c),
-phase 13's steps and phase 15's (which then checks only both iterators'
-batches, bit for bit on the card); phase 16(a) then moves 64 MB of seeded
-f32 in place of the parameters. Prints the
+one table per path (PATH with the path's name before its suffix), and
+one forward of phase 17's replica; ``--skip-main`` skips the train paths,
+phases 4-6, 8-11, 14 and 16(b)-(c), phase 13's steps and phase 15's (which
+then checks only both iterators' batches, bit for bit on the card) and
+phase 17(b)-(f); phase 16(a) then moves 64 MB of seeded f32 in place of the
+parameters. Prints the
 kernels as one JSON line, then the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when
 CUDA is missing or the package is not beside this script.
@@ -258,6 +296,32 @@ COMM_SLICE_MB = 64
 COMM_TIMEOUT_S = 600.0
 TUNE_PATH = "gpt2_medium_tune_trial"
 TUNE_HIST = "chip_smoke_trial_step_ms"
+# phase 17: serving gpt2_medium from one replica on the card. A batch is
+# right-padded to its longest prompt rounded up to SERVE_PAD. Each answer
+# (the f32 logits at a prompt's last position) is held to the driver's
+# forward of the same prompt by SERVE_TOL = (atol, norm_rtol): every
+# element within atol, the vector within norm_rtol normwise; the logits
+# are bf16 values (the head's output), so atol is a few of their ulps. The
+# readings the limits were set from are in PERF.md. The argmax must agree
+# wherever the reference's top-2 margin exceeds 2 x atol.
+SERVE_PATH = "gpt2_medium_serve"
+SERVE_MAX_BATCH = 12
+SERVE_WAIT_S = 0.02
+SERVE_MAX_QUERIES = 16
+SERVE_PAD = 128
+SERVE_REQUESTS = 96
+SERVE_CLIENTS = 16
+SERVE_LENS = (128, 1024)
+SERVE_HTTP = 8
+SERVE_TOL = (0.125, 3e-2)
+# (e): after an eviction the replica holds one model's bytes, within this
+SERVE_MUX_SLACK = 64 << 20
+SERVE_WORKFLOW = "chip_smoke_logits"
+
+try:   # phase 17's deployments use the port's serve decorators
+    from ray_tpu_torch import serve as _serve
+except ImportError:   # run() says the package is missing, and exits
+    _serve = None
 
 REPLACES = {
     "flash_fwd": "ray_tpu/ops/attention.py:89",
@@ -2547,6 +2611,564 @@ def tune_phase(torch, smi, by_path, base, gang_base):
     return out
 
 
+# --- phase 17: serving gpt2_medium from a GPU replica ------------------------
+
+def _serve_decorator(name, **kw):
+    """``serve.<name>(**kw)``; without the package (run() then exits) the
+    method stays as it is."""
+    return (getattr(_serve, name)(**kw) if _serve is not None
+            else (lambda fn: fn))
+
+
+def last_logits(torch, model, prompts):
+    """The f32 logits at each prompt's last position, as a CPU tensor [n, V]:
+    the prompts (token lists) right-padded to the longest rounded up to
+    SERVE_PAD (exact under causal attention), one `model.apply` on the
+    card. inference_mode is entered here: it is per thread, and a batch
+    runs on the batcher's thread."""
+    lens = [len(p) for p in prompts]
+    seq = -(-max(lens) // SERVE_PAD) * SERVE_PAD
+    tokens = torch.zeros(len(prompts), seq, dtype=torch.long)
+    for i, p in enumerate(prompts):
+        tokens[i, :len(p)] = torch.tensor(p)
+    with torch.inference_mode():
+        logits = model.apply(tokens.cuda())
+        rows = torch.arange(len(prompts), device=logits.device)
+        last = logits[rows, torch.tensor(lens, device=logits.device) - 1]
+        out = last.float().cpu()
+    return out.clone()          # a plain tensor, outside inference mode
+
+
+class ServeReplicaTools:
+    """What the driver reads in a phase-17 replica through its actor's
+    ``call_method``: the launch counts of this process, its slots and
+    memory."""
+
+    def kernel_launches(self, reset=False):
+        from ray_tpu_torch.ops import attention as A
+        counts = dict(A.launches)
+        if reset:
+            A.reset_launch_counts()
+        return counts
+
+    def device_report(self):
+        """(GPU slots, CUDA_VISIBLE_DEVICES, the card's name, bytes
+        allocated on it after a gc)."""
+        import torch
+
+        import ray_tpu_torch as rt
+        gc.collect()
+        return (rt.get_runtime_context().get_accelerator_ids(),
+                os.environ.get("CUDA_VISIBLE_DEVICES"),
+                torch.cuda.get_device_name(0),
+                torch.cuda.memory_allocated())
+
+
+class GPT2Server(ServeReplicaTools):
+    """Phase 17's deployment (user code: the package has no model server;
+    the driver wraps it in ``serve.deployment`` with a card of its own):
+    gpt2_medium from seed 0 on the card. A request is ``{"prompts":
+    [[token, ...], ...]}``, with ``"format": "list"`` for JSON callers; its
+    answer is each prompt's f32 logits at its last position, a CPU tensor
+    [n, V] (lists for "list"). Concurrent requests are batched, up to
+    SERVE_MAX_BATCH a forward."""
+
+    def __init__(self):
+        from ray_tpu_torch import models
+        self.model = models.GPT(models.gpt2_medium(), device="cuda",
+                                seed=0).eval()
+        self.batch_sizes = []      # prompts in each forward
+
+    @_serve_decorator("batch", max_batch_size=SERVE_MAX_BATCH,
+                      batch_wait_timeout_s=SERVE_WAIT_S)
+    def infer(self, requests):
+        import torch
+
+        prompts = [p for r in requests for p in r]
+        self.batch_sizes.append(len(prompts))
+        logits = last_logits(torch, self.model, prompts)
+        out, i = [], 0
+        for r in requests:
+            out.append(logits[i:i + len(r)])
+            i += len(r)
+        return out
+
+    def __call__(self, request):
+        logits = self.infer(request["prompts"])
+        return logits.tolist() if request.get("format") == "list" else logits
+
+    def seen_batches(self):
+        return list(self.batch_sizes)
+
+    def profile_forward(self, prompts, path):
+        """Device time of one batch's forward: the unprofiled ms (host
+        clock to a synchronise, median of 3), then `profile_steps` over 2
+        more; the flash forward's µs per launch from its class."""
+        import torch
+
+        model = self.model
+
+        def one():
+            last_logits(torch, model, prompts)
+            torch.cuda.synchronize()
+
+        one()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            one()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms = sorted(times)[1]
+        prof = profile_steps(torch, one, path, ms)
+        layers = self.model.config.n_layers
+        prof["flash_fwd_us"] = (prof["by_class_ms"]["flash kernels"] * 1e3
+                                / layers)
+        prof["forward_ms"] = ms
+        return prof
+
+
+class MuxGPT2(ServeReplicaTools):
+    """Phase 17(e)'s deployment: one gpt2_medium per multiplexed model id
+    (the id is its seed), at most one held by the replica."""
+
+    @_serve_decorator("multiplexed", max_num_models_per_replica=1)
+    def get_model(self, model_id):
+        from ray_tpu_torch import models
+        return models.GPT(models.gpt2_medium(), device="cuda",
+                          seed=int(model_id)).eval()
+
+    def __call__(self, request):
+        import torch
+
+        model = self.get_model(_serve.get_multiplexed_model_id())
+        return last_logits(torch, model, request["prompts"])
+
+
+def wf_logits(tokens, marker):
+    """Phase 17(f)'s first workflow step, in a ``num_gpus=1`` task: the
+    last-position logits of `tokens` (a CPU tensor [B, S]) through a
+    seed-0 gpt2_medium on the card; appends a line to `marker`."""
+    import torch
+
+    from ray_tpu_torch import models
+    with open(marker, "a") as f:
+        f.write("wf_logits\n")
+    model = models.GPT(models.gpt2_medium(), device="cuda", seed=0).eval()
+    return last_logits(torch, model, tokens.tolist())
+
+
+def wf_reduce(logits):
+    """Phase 17(f)'s second step, on the CPU: each row's argmax and max."""
+    return {"argmax": logits.argmax(-1).tolist(),
+            "max": logits.max(-1).values.tolist()}
+
+
+def autoscaled_flash():
+    """Phase 17(f), in a ``num_gpus=1`` task on the node the autoscaler
+    launched: its slots and card, and one flash forward at gpt2_medium's
+    attention shape against its plain version (phase 2's bf16 rule)."""
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.ops import attention as A
+
+    seen = torch.cuda.is_available()
+    report = {"slots": rt.get_runtime_context().get_accelerator_ids(),
+              "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+              "device": torch.cuda.get_device_name(0) if seen else None}
+    if not seen:
+        return report
+    q, k, v, _ = make_case(torch, 1, 16, 16, 1024, 1024, 64,
+                           torch.bfloat16, True, seed=17)
+    A.reset_launch_counts()
+    out, lse = A.flash_fwd(q, k, v, True)
+    report["launches"] = dict(A.launches)
+    p_out, p_lse = A.flash_fwd_plain(q, k, v, True)
+    torch.cuda.synchronize()
+    report["out"] = compare(out, p_out)
+    report["lse_max_abs"] = compare(lse, p_lse)[0]
+    return report
+
+
+def _answers_within(torch, got, refs):
+    """Answers `got` against `refs` (rows of [n, V]): the (max |err|,
+    normwise) readings, how many had their argmax checked, and the
+    failures as text."""
+    atol, norm_rtol = SERVE_TOL
+    readings, n_checked, bad = [], 0, []
+    for i, (g, r) in enumerate(zip(got, refs)):
+        err = (g.float() - r.float()).abs()
+        max_abs, norm = err.max().item(), (err.norm() / r.norm()).item()
+        top = r.topk(2).values
+        checked = bool(top[0] - top[1] > 2 * atol)
+        same = bool(g.argmax() == r.argmax())
+        readings.append((max_abs, norm))
+        n_checked += checked
+        if max_abs > atol or norm > norm_rtol or (checked and not same):
+            bad.append(f"#{i}: max {max_abs:.4g}, norm {norm:.3g}, "
+                       f"argmax {'equal' if same else 'differs'}"
+                       f"{' (margin > 2 atol)' if checked else ''}")
+    return readings, n_checked, bad
+
+
+def serve_phase(torch, A, models, smi, by_path, skip_main,
+                profile_path=None):
+    """Phase 17 (see the module docstring); under --skip-main (a) only."""
+    import concurrent.futures
+    import shutil
+    import tempfile
+    import urllib.request
+
+    import numpy as np
+
+    import chip_smoke as me
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import exceptions, serve, state, workflow
+    from ray_tpu_torch.dag import InputNode
+
+    out = {}
+    cfg = models.gpt2_medium()
+    atol, norm_rtol = SERVE_TOL
+    batch_a = _tokens(12, 1024, cfg.vocab_size, seed=1).tolist()
+
+    # the driver's references: the same seed-0 model through the kernel, and
+    # through the plain attention
+    ref_model = models.GPT(cfg, device="cuda", seed=0).eval()
+    ref_a = last_logits(torch, ref_model, batch_a)
+    plain_model = models.GPT(dataclasses.replace(
+        cfg, attention_impl="reference"), device="cuda", seed=0).eval()
+    same_weights = all(torch.equal(p, q) for p, q in zip(
+        ref_model.parameters(), plain_model.parameters()))
+    plain_a = last_logits(torch, plain_model, batch_a)
+    del plain_model
+    plain_read, _, plain_bad = _answers_within(torch, ref_a, plain_a)
+    out["kernel_vs_plain"] = plain_read
+    log(f"{SERVE_PATH}: the driver's forward of phase 4's batch [12, 1024] "
+        f"through the flash kernel against the plain attention: max |err| "
+        f"{max(r[0] for r in plain_read):.4g} (<= {atol}), normwise "
+        f"{max(r[1] for r in plain_read):.3g} (<= {norm_rtol:.0e}) over the "
+        f"12 last-position logit rows; weights equal: {same_weights}")
+    if not same_weights:
+        raise SmokeFailure(f"{SERVE_PATH}: the plain model's weights differ")
+    if plain_bad:
+        raise SmokeFailure(f"{SERVE_PATH}: kernel against plain attention: "
+                           + "; ".join(plain_bad))
+
+    storage = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    rt.init(num_cpus=4)
+    try:
+        server = serve.deployment(
+            ray_actor_options={"num_gpus": 1},
+            max_concurrent_queries=SERVE_MAX_QUERIES)(me.GPT2Server)
+        t0 = time.perf_counter()
+        handle = serve.run(server.bind())
+        controller = rt.get_actor("rtpu:serve_controller")
+        (replica,) = rt.get(controller.get_replicas.remote("GPT2Server"))
+        report = rt.get(replica.call_method.remote("device_report"),
+                        timeout=600)
+        out["replica_start_s"] = time.perf_counter() - t0
+        name = torch.cuda.get_device_name(0)
+        log(f"{SERVE_PATH}: replica up in {out['replica_start_s']:.1f} s: "
+            f"slots {report[0]}, CUDA_VISIBLE_DEVICES {report[1]!r}, "
+            f"{report[2]}, {report[3] / 2**30:.2f} GiB allocated")
+        if report[:3] != ({"GPU": [0]}, "0", name):
+            raise SmokeFailure(f"{SERVE_PATH}: the replica sees {report}")
+
+        # (a) exactness: one request of 12 prompts, bit for bit
+        rt.get(replica.call_method.remote("kernel_launches", True))
+        t0 = time.perf_counter()
+        got_a = handle.remote({"prompts": batch_a}).result(timeout=600)
+        out["a_request_s"] = time.perf_counter() - t0
+        counts = rt.get(replica.call_method.remote("kernel_launches"))
+        by_path[SERVE_PATH] = counts
+        bit_a = torch.equal(got_a, ref_a)
+        log(f"{SERVE_PATH}: (a) one request of [12, 1024] in "
+            f"{out['a_request_s']:.2f} s: logits {tuple(got_a.shape)} "
+            f"{got_a.dtype}, equal to the driver's bit for bit: {bit_a}; "
+            f"launches in the replica {counts}")
+        want = {"flash_fwd": cfg.n_layers, "flash_bwd_dq": 0,
+                "flash_bwd_dkv": 0}
+        if counts != want:
+            raise SmokeFailure(f"{SERVE_PATH}: (a) launches {counts}, "
+                               f"expected {want}")
+        if not bit_a:
+            err = (got_a - ref_a).abs().max().item()
+            raise SmokeFailure(f"{SERVE_PATH}: (a) the replica's logits "
+                               f"differ from the driver's (max {err:.3g})")
+        out["a"] = {"bit_equal": bit_a, "launches": counts}
+        if skip_main:
+            return out
+
+        # (b) traffic: 16 closed-loop clients, 6 single-prompt requests each
+        rng = np.random.default_rng(2)
+        lens = rng.integers(SERVE_LENS[0], SERVE_LENS[1] + 1, SERVE_REQUESTS)
+        prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
+        per_client = SERVE_REQUESTS // SERVE_CLIENTS
+        answers, latency = [None] * SERVE_REQUESTS, [0.0] * SERVE_REQUESTS
+
+        def client(c):
+            for j in range(per_client):
+                i = c * per_client + j
+                t = time.perf_counter()
+                answers[i] = handle.remote(
+                    {"prompts": [prompts[i]]}).result(timeout=600)[0]
+                latency[i] = time.perf_counter() - t
+
+        before = len(rt.get(replica.call_method.remote("seen_batches")))
+        rt.get(replica.call_method.remote("kernel_launches", True))
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(SERVE_CLIENTS) as pool:
+            list(pool.map(client, range(SERVE_CLIENTS)))
+        wall = time.perf_counter() - t0
+        traffic_counts = rt.get(replica.call_method.remote("kernel_launches"))
+        sizes = rt.get(replica.call_method.remote("seen_batches"))[before:]
+        rows = [r for r in state.serve_requests(limit=1000)
+                if r["deployment"] == "GPT2Server"]
+        row_sizes = {}
+        for r in rows:
+            row_sizes[r["batch_size"]] = row_sizes.get(r["batch_size"], 0) + 1
+        refs_b = [last_logits(torch, ref_model, [p])[0] for p in prompts]
+        read_b, checked, bad_b = _answers_within(torch, answers, refs_b)
+        lat = sorted(latency)
+        p50 = lat[len(lat) // 2]
+        p99 = lat[min(len(lat) - 1, math.ceil(0.99 * len(lat)) - 1)]
+        out["b"] = {
+            "requests_per_s": SERVE_REQUESTS / wall,
+            "prompt_tokens_per_s": int(sum(lens)) / wall, "wall_s": wall,
+            "p50_s": p50, "p99_s": p99, "batch_sizes": sizes,
+            "access_log_batch_sizes": row_sizes,
+            "launches": traffic_counts,
+            "max_abs_err": max(r[0] for r in read_b),
+            "max_norm_err": max(r[1] for r in read_b),
+            "argmax_checked": checked}
+        log(f"{SERVE_PATH}: (b) {SERVE_REQUESTS} requests from "
+            f"{SERVE_CLIENTS} closed-loop clients ({per_client} each), prompt "
+            f"lengths {SERVE_LENS[0]}-{SERVE_LENS[1]} (default_rng(2)), "
+            f"{int(sum(lens))} prompt tokens in {wall:.3f} s: "
+            f"{out['b']['requests_per_s']:.2f} requests/s, "
+            f"{out['b']['prompt_tokens_per_s']:.0f} prompt tokens/s, latency "
+            f"p50 {p50 * 1e3:.1f} ms p99 {p99 * 1e3:.1f} ms; forwards "
+            f"{len(sizes)} of sizes {sizes}; access-log batch sizes "
+            f"{row_sizes} (requests per size, (a) included); launches in the "
+            f"replica {traffic_counts} ({smi})")
+        log(f"{SERVE_PATH}: (b) answers against the driver's forward of each "
+            f"prompt alone (batch 1, unpadded): max |err| "
+            f"{out['b']['max_abs_err']:.4g} (<= {atol}), normwise "
+            f"{out['b']['max_norm_err']:.3g} (<= {norm_rtol:.0e}); argmax "
+            f"checked on {checked} answers (top-2 margin > {2 * atol})")
+        if bad_b:
+            raise SmokeFailure(f"{SERVE_PATH}: (b) answers off: "
+                               + "; ".join(bad_b))
+        want_b = {"flash_fwd": cfg.n_layers * len(sizes), "flash_bwd_dq": 0,
+                  "flash_bwd_dkv": 0}
+        if traffic_counts != want_b or sum(sizes) != SERVE_REQUESTS:
+            raise SmokeFailure(f"{SERVE_PATH}: (b) launches {traffic_counts}"
+                               f" for forwards {sizes}")
+        if profile_path:
+            path = Path(profile_path)
+            prof = rt.get(replica.call_method.remote(
+                "profile_forward", batch_a,
+                str(path.with_name(f"{path.stem}.{SERVE_PATH}{path.suffix}"))),
+                timeout=600)
+            out["b"]["profile"] = prof
+            log(f"{SERVE_PATH}: (b) --profile, in the replica: one forward "
+                f"of [12, 1024] {prof['forward_ms']:.2f} ms, device busy "
+                f"{prof['busy_ms']:.3f} ms a batch (idle "
+                f"{prof['idle_share']:.3f}), flash forward "
+                f"{prof['flash_fwd_us']:.1f} us a launch ({smi})")
+
+        # (c) HTTP: 8 of (b)'s prompts as JSON through the gateway
+        url = serve.start_http(port=0)
+
+        def post(i):
+            body = json.dumps({"prompts": [prompts[i]],
+                               "format": "list"}).encode()
+            req = urllib.request.Request(
+                f"{url}/GPT2Server", data=body,
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=600) as resp:
+                return json.loads(resp.read())["result"][0]
+
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(SERVE_HTTP) as pool:
+            http = list(pool.map(post, range(SERVE_HTTP)))
+        http_s = time.perf_counter() - t0
+        serve.stop_http()
+        got_c = [torch.tensor(h, dtype=torch.float32) for h in http]
+        read_c, _, bad_c = _answers_within(torch, got_c,
+                                           refs_b[:SERVE_HTTP])
+        out["c"] = {"seconds": http_s,
+                    "max_abs_err": max(r[0] for r in read_c),
+                    "max_norm_err": max(r[1] for r in read_c)}
+        log(f"{SERVE_PATH}: (c) {SERVE_HTTP} JSON requests through "
+            f"serve.start_http in {http_s:.2f} s: max |err| "
+            f"{out['c']['max_abs_err']:.4g}, normwise "
+            f"{out['c']['max_norm_err']:.3g} against the driver's")
+        if bad_c:
+            raise SmokeFailure(f"{SERVE_PATH}: (c) answers off: "
+                               + "; ".join(bad_c))
+
+        # (d) redeploy: the slot comes back to a new replica
+        t0 = time.perf_counter()
+        serve.delete("GPT2Server")
+        handle = serve.run(server.bind())
+        (replica,) = rt.get(controller.get_replicas.remote("GPT2Server"))
+        report = rt.get(replica.call_method.remote("device_report"),
+                        timeout=600)
+        got_d = handle.remote({"prompts": batch_a}).result(timeout=600)
+        out["d"] = {"seconds": time.perf_counter() - t0,
+                    "bit_equal": torch.equal(got_d, ref_a),
+                    "slots": report[0], "visible": report[1]}
+        log(f"{SERVE_PATH}: (d) delete and redeploy in "
+            f"{out['d']['seconds']:.1f} s: the new replica's slots "
+            f"{report[0]}, CUDA_VISIBLE_DEVICES {report[1]!r}; (a)'s request "
+            f"bit-equal: {out['d']['bit_equal']}")
+        if report[:3] != ({"GPU": [0]}, "0", name) \
+                or not out["d"]["bit_equal"]:
+            raise SmokeFailure(f"{SERVE_PATH}: (d) redeploy: {out['d']}")
+        serve.delete("GPT2Server")
+
+        # (e) multiplexing on the card: one model at a time
+        t0 = time.perf_counter()
+        mux = serve.run(serve.deployment(
+            ray_actor_options={"num_gpus": 1})(me.MuxGPT2).bind())
+        (replica,) = rt.get(controller.get_replicas.remote("MuxGPT2"))
+        one_model = sum(p.numel() * p.element_size()
+                        for p in ref_model.parameters())
+        mux_out = {}
+        for seed in (0, 1):
+            got = mux.options(multiplexed_model_id=str(seed)).remote(
+                {"prompts": batch_a}).result(timeout=600)
+            held = rt.get(replica.multiplexed_model_ids.remote())
+            nbytes = rt.get(replica.call_method.remote("device_report"))[3]
+            fresh = (ref_model if seed == 0 else
+                     models.GPT(cfg, device="cuda", seed=seed).eval())
+            mux_out[seed] = {"held": held, "bytes": nbytes,
+                             "bit_equal": torch.equal(
+                                 got, last_logits(torch, fresh, batch_a))}
+            del fresh
+        out["e"] = {"seconds": time.perf_counter() - t0,
+                    "one_model_bytes": one_model, "by_seed": mux_out}
+        log(f"{SERVE_PATH}: (e) multiplexed seeds 0 then 1 (at most one "
+            "model a replica) in "
+            f"{out['e']['seconds']:.1f} s: " + "; ".join(
+                f"seed {s}: models held {m['held']}, "
+                f"{m['bytes'] / 2**20:.1f} MiB allocated after gc "
+                f"(one model {one_model / 2**20:.1f} MiB), bit-equal to a "
+                f"fresh model: {m['bit_equal']}" for s, m in mux_out.items()))
+        for seed, m in mux_out.items():
+            if (m["held"] != [str(seed)] or not m["bit_equal"]
+                    or abs(m["bytes"] - one_model) > SERVE_MUX_SLACK):
+                raise SmokeFailure(f"{SERVE_PATH}: (e) seed {seed}: {m}")
+        serve.delete("MuxGPT2")
+
+        # (f) a durable workflow whose first step runs on the card
+        t0 = time.perf_counter()
+        workflow.init(storage)
+        marker = os.path.join(storage, "marker")
+        with InputNode() as inp:
+            step = rt.remote(num_gpus=1)(me.wf_logits).bind(inp, marker)
+            dag = rt.remote(me.wf_reduce).bind(step)
+        tokens_a = torch.tensor(batch_a)
+        first = workflow.run(dag, tokens_a, workflow_id=SERVE_WORKFLOW)
+        again = workflow.run(dag, torch.tensor(batch_a),
+                             workflow_id=SERVE_WORKFLOW)
+        ran = open(marker).read().splitlines()
+        want_wf = {"argmax": ref_a.argmax(-1).tolist(),
+                   "max": ref_a.max(-1).values.tolist()}
+        out["f_workflow"] = {"seconds": time.perf_counter() - t0,
+                             "step_runs": len(ran),
+                             "status": workflow.get_status(SERVE_WORKFLOW),
+                             "equal": first == want_wf and again == first}
+        workflow.init(None)
+        log(f"{SERVE_PATH}: (f) workflow {SERVE_WORKFLOW}: the num_gpus=1 "
+            f"step and the CPU reduction in "
+            f"{out['f_workflow']['seconds']:.1f} s, status "
+            f"{out['f_workflow']['status']}, the rerun read the stored "
+            f"output; step runs {len(ran)}; argmax and max equal to (a)'s: "
+            f"{out['f_workflow']['equal']}")
+        if len(ran) != 1 or not out["f_workflow"]["equal"]:
+            raise SmokeFailure(f"{SERVE_PATH}: (f) workflow: "
+                               f"{out['f_workflow']}")
+    except exceptions.RayTpuError as exc:
+        raise SmokeFailure(f"{SERVE_PATH}: {type(exc).__name__}: {exc}") \
+            from exc
+    finally:
+        serve.shutdown()
+        rt.shutdown()
+        workflow.init(None)
+        shutil.rmtree(storage, ignore_errors=True)
+
+    out["f_autoscaler"] = autoscaler_check(torch, smi)
+    return out
+
+
+def autoscaler_check(torch, smi):
+    """Phase 17(f)'s autoscaler: a GPU node type scaled up for a queued
+    num_gpus=1 task and drained when idle."""
+    import chip_smoke as me
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import exceptions
+    from ray_tpu_torch.autoscaler import (AutoscalerConfig, FakeNodeProvider,
+                                          NodeType, StandardAutoscaler)
+    from ray_tpu_torch.cluster_utils import Cluster
+
+    t0 = time.perf_counter()
+    cluster = Cluster(initialize_head=True, head_node_args={"num_cpus": 2})
+    rt.init(address=cluster,
+            _system_config={"infeasible_task_grace_s": 120.0})
+    provider = FakeNodeProvider(cluster)
+    scaler = StandardAutoscaler(cluster.gcs, provider, AutoscalerConfig(
+        node_types={"gpu_worker": NodeType(
+            resources={"CPU": 2.0, "GPU": 1.0}, max_workers=1)},
+        idle_timeout_s=3.0, update_interval_s=0.4))
+    scaler.start()
+    try:
+        head_gpus = rt.cluster_resources().get("GPU", 0)
+        report = rt.get(rt.remote(num_gpus=1)(me.autoscaled_flash).remote(),
+                        timeout=300)
+        up_s = time.perf_counter() - t0
+        launched = scaler.num_launched
+        deadline = time.monotonic() + 120
+        while provider.non_terminated_nodes() and time.monotonic() < deadline:
+            time.sleep(0.2)
+        drained = not provider.non_terminated_nodes()
+        out = {"head_gpus": head_gpus, "task": report, "launched": launched,
+               "terminated": scaler.num_terminated, "drained": drained,
+               "up_s": up_s, "seconds": time.perf_counter() - t0}
+    except exceptions.RayTpuError as exc:
+        raise SmokeFailure(f"{SERVE_PATH}: (f) autoscaler: "
+                           f"{type(exc).__name__}: {exc}") from exc
+    finally:
+        scaler.stop()
+        rt.shutdown()
+        cluster.shutdown()
+    norm_tol, atol, lse_atol = KERNEL_TOL["bf16"]
+    err = report.get("out")
+    log(f"{SERVE_PATH}: (f) autoscaler: head GPUs {head_gpus}; the queued "
+        f"num_gpus=1 task ran on a launched gpu_worker node after "
+        f"{up_s:.1f} s: slots {report['slots']}, CUDA_VISIBLE_DEVICES "
+        f"{report['visible']!r}, {report['device']}; its flash forward "
+        f"against the plain version: " + (
+            f"out max {err[0]:.3e}, norm {err[1]:.3e} (<= {norm_tol:.0e}), "
+            f"atol needed {err[2]:.3e} (<= {atol:.0e}), lse max "
+            f"{report['lse_max_abs']:.3e} (<= {lse_atol:.0e}), launches "
+            f"{report['launches']}" if err else "no card")
+        + f"; launched {launched}, terminated {out['terminated']}, drained: "
+        f"{drained} ({out['seconds']:.1f} s) ({smi})")
+    name = torch.cuda.get_device_name(0)
+    ok = (head_gpus == 0 and launched == 1 and drained
+          and out["terminated"] == 1
+          and report["slots"] == {"GPU": [0]} and report["visible"] == "0"
+          and report["device"] == name and err is not None
+          and err[1] <= norm_tol and err[2] <= atol
+          and report["lse_max_abs"] <= lse_atol
+          and report["launches"]["flash_fwd"] == 1)
+    if not ok:
+        raise SmokeFailure(f"{SERVE_PATH}: (f) autoscaler: {out}")
+    return out
+
+
 def run(args) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2746,6 +3368,17 @@ def run(args) -> int:
     phase16_s = time.perf_counter() - t0
     log(f"phase 16: {phase16_s:.1f} s")
 
+    # phase 17: gpt2_medium served from a GPU replica through the flash
+    # forward kernel, then a workflow step and an autoscaled node on the
+    # card ((a) only under --skip-main)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    serving = serve_phase(torch, A, models, smi, by_path, args.skip_main,
+                          args.profile)
+    phase17_s = time.perf_counter() - t0
+    log(f"phase 17: {phase17_s:.1f} s")
+
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name],
                 "launches": by_path["gpt2_medium"][name],
@@ -2764,7 +3397,8 @@ def run(args) -> int:
                                     for k, r in results.items()},
                        "model_check": model, "ring": ring,
                        "main": main, "rl": rl_out, "runtime": runtime,
-                       "comm": comm, "phase16_s": phase16_s},
+                       "comm": comm, "phase16_s": phase16_s,
+                       "serve": serving, "phase17_s": phase17_s},
                       f, indent=1)
     log(json.dumps({"kernels": kernels}))
     log(smi)
@@ -2782,8 +3416,9 @@ def main() -> int:
                     "write torch.profiler's table to PATH with the path's "
                     "name before the suffix")
     ap.add_argument("--skip-main", action="store_true",
-                    help="skip the train paths, phases 4-6, 8-11, 14 and "
-                    "16(b)-(c) and the steps of phases 13 and 15 (debugging)")
+                    help="skip the train paths, phases 4-6, 8-11, 14, "
+                    "16(b)-(c) and 17(b)-(f) and the steps of phases 13 and "
+                    "15 (debugging)")
     args = ap.parse_args()
     try:
         return run(args)

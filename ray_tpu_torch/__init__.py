@@ -12,8 +12,10 @@ compute core (``rl``: the policy and Q modules, the PPO, V-trace and
 double-DQN learners, GAE, replay buffers and the env runners' sampling),
 the gang trainer (``train``) and its hyperparameter search (``tune``),
 streaming datasets whose device batches land on the card as torch tensors
-(``data``), and the host collectives with ``MeshGroup`` (``comm``), which
-take torch tensors, CUDA and bf16 ones included.
+(``data``), the host collectives with ``MeshGroup`` (``comm``), which
+take torch tensors, CUDA and bf16 ones included, model serving from
+replica actors (``serve``), durable workflows (``workflow``) and the
+autoscaler (``autoscaler``).
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``; callers that sample on the CPU as the JAX runners do pass
 it to the env runners.

@@ -3936,7 +3936,22 @@ class NodeService:
             except OSError:
                 pass
         else:
+            self._drop_queued_creation(actor_id)
             self._handle_actor_death(actor_id, reason)
+
+    def _drop_queued_creation(self, actor_id: ActorID) -> None:
+        """Purge a never-placed actor's creation record: left queued, it
+        would bring the killed actor up once its resources free, and hold
+        them (a killed pending replica took the card a redeploy needed)."""
+        for rec in list(self._pending):
+            if (rec.kind == "actor_create" and rec.actor_spec is not None
+                    and rec.actor_spec.actor_id == actor_id):
+                rec.cancelled = True
+                self._pending.remove(rec)
+        for tid, rec in list(self._waiting_deps.items()):
+            if (rec.kind == "actor_create" and rec.actor_spec is not None
+                    and rec.actor_spec.actor_id == actor_id):
+                del self._waiting_deps[tid]
 
     def _handle_actor_death(self, actor_id: ActorID, reason: str) -> None:
         st = self._actors.get(actor_id)

@@ -39,11 +39,17 @@ HOST_MODULES = (
     "comm", "comm.collective", "comm.device_mesh", "tune", "tune.tuner",
     "tune.search", "tune.searcher", "tune.schedulers", "tune.result_grid",
     "util.metrics", "util.multiprocessing", "util.joblib_backend")
+# serving, workflows and the autoscaler: none imports torch, nor grpc (the
+# gRPC ingress imports it where it starts or calls)
+SERVE_MODULES = (
+    "_private.http_util", "serve", "serve.api", "serve.batching",
+    "serve.controller", "serve.grpc_ingress", "serve.handle",
+    "serve.multiplex", "serve.proxy", "serve.replica",
+    "serve.request_context", "workflow", "autoscaler",
+    "autoscaler.autoscaler", "autoscaler.node_provider")
 # ray_tpu layers a copied module reaches lazily and the port does not have
-# yet: importing one fails as for any missing module
-NOT_PORTED = {
-    "ray_tpu_torch.serve.api._CONTROLLER_NAME",   # state/api.py's serve rows
-}
+# yet: importing one fails as for any missing module (none is left)
+NOT_PORTED = set()
 
 
 def _py_files():
@@ -72,7 +78,8 @@ def test_import_leaves_jax_and_ray_tpu_out():
             "ray_tpu_torch.train.config, ray_tpu_torch.train.result, "
             "ray_tpu_torch.rl.offline, "
             + ", ".join(f"ray_tpu_torch.{m}" for m in RUNTIME_MODULES
-                        + DATA_MODULES + HOST_MODULES) + "; "
+                        + DATA_MODULES + HOST_MODULES + SERVE_MODULES)
+            + "; "
             "sys.path.insert(0, 'tests'); import torch_dist_worker; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ray_tpu', 'optax', 'triton', 'pyarrow', "
@@ -120,6 +127,22 @@ def test_comm_and_tune_import_leave_torch_out():
             "('torch', 'jax', 'ray_tpu')]; print(bad); "
             "import torch; a = c._to_numpy(torch.ones(2, dtype=torch.bfloat16)); "
             "sys.exit(1 if bad or a.dtype != c._BF16 else 0)")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_serve_workflow_autoscaler_import_leave_torch_and_grpc_out():
+    """Serve, workflows and the autoscaler import no torch (a replica, a
+    workflow step or a proxy that moves no tensor stays light) and no
+    grpc (the card's machine has no grpcio)."""
+    code = ("import sys; "
+            + "; ".join(f"import ray_tpu_torch.{m}" for m in SERVE_MODULES)
+            + "; bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('torch', 'grpc', 'jax', 'ray_tpu')]; print(bad); "
+            "sys.exit(1 if bad else 0)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(ROOT)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

@@ -212,3 +212,43 @@ def test_whole_card_waits_for_a_killed_actors_slot(runtime):
                                                               "0")
         rt.kill(actor)
         remove_placement_group(pg)
+
+
+@pytest.mark.parametrize("runtime", [{"num_cpus": 4, "num_gpus": 1}],
+                         indirect=True)
+def test_killed_pending_actor_never_starts(runtime):
+    """An actor killed while it waits for a card stays dead when the card
+    frees: its queued creation goes with it. (Left queued, it came up
+    and held the slot, so a redeployed serve replica waited forever;
+    ray_tpu keeps that fault.)"""
+    import time
+
+    holder = rt.remote(T.Slots).options(num_gpus=1)
+    first = holder.remote()
+    assert rt.get(first.ids.remote(NAME), timeout=60) == ({"GPU": [0]}, "0")
+    pending = holder.remote()
+    from ray_tpu_torch import state
+
+    def state_of(actor):
+        return {row["actor_id"]: row["state"]
+                for row in state.list_actors()}.get(actor.actor_id.hex())
+
+    deadline = time.monotonic() + 20
+    while (state_of(pending) != "PENDING_CREATION"
+           and time.monotonic() < deadline):
+        time.sleep(0.1)
+    assert state_of(pending) == "PENDING_CREATION"
+    rt.kill(pending)
+    rt.kill(first)
+    deadline = time.monotonic() + 20
+    while (rt.available_resources().get("GPU", 0) != 1
+           and time.monotonic() < deadline):
+        time.sleep(0.1)
+    time.sleep(1.0)              # a revived creation would take it by now
+    assert rt.available_resources().get("GPU", 0) == 1
+    assert state_of(pending) == "DEAD"
+    with pytest.raises(exceptions.ActorDiedError):
+        rt.get(pending.ids.remote(NAME), timeout=30)
+    # the slot serves the next holder
+    third = holder.remote()
+    assert rt.get(third.ids.remote(NAME), timeout=60) == ({"GPU": [0]}, "0")
