@@ -187,14 +187,40 @@ Phases, each fatal on failure (non-zero exit, no result line):
     ``num_gpus=1`` task, which sees slot 0 and the card and runs one flash
     forward within phase 2's limits of its plain version, and drains the
     node when it is idle. Prints the phase's seconds.
+18. the node main and the head's services: a ``Cluster(process_isolated=
+    True)`` whose head node process has no GPU and a second node process
+    with one slot (``add_node(num_gpus=1)``), each node's seconds to its
+    ready line; ``ray_tpu_torch.nodes()`` must show ``GPU`` 1.0 on the
+    second node only. (b) a driver script submitted through
+    ``ray_tpu_torch.job.JobSubmissionClient`` at the job address the head
+    published attaches with ``init(address=os.environ["RTPU_ADDRESS"])``
+    and runs phase 4's path (same weights, tokens and steps) in one
+    ``num_gpus=1`` task from this module (``job_task``); fails unless the
+    job ends SUCCEEDED, its logs (read through the client) hold the
+    driver's result line, the task ran on the GPU node, its losses and
+    grad norms equal phase 4's bit for bit and it launched 48 / 24 / 24 a
+    step. (c) while the task holds the card the dashboard's snapshot
+    (``/api/history``) shows ``gpu_used`` 1.0 and ``python -m
+    ray_tpu_torch.scripts.cli status`` on the head's session "GPU: 0 / 1
+    available", after the job 0.0 and "1 / 1"; the card is held by the
+    task's worker and by neither node
+    process nor the job's driver: on the card's machine nvidia-smi names
+    every app by a pid of another namespace, so the holders are the
+    processes with a /dev/nvidia<N> handle open, and nvidia-smi's count of
+    apps must equal their count, before the job and after it (the new
+    holder the task's worker). (d) ``Cluster.remove_node`` of the GPU
+    node: within NODE_GONE_S its worker has let the card go (nvidia-smi's
+    count back to before the job) and the head reports the node dead.
+    Prints the job's seconds from submit and the phase's.
 
 ``--profile PATH`` profiles two more steps of each train path and writes
 one table per path (PATH with the path's name before its suffix), and
 one forward of phase 17's replica; ``--skip-main`` skips the train paths,
 phases 4-6, 8-11, 14 and 16(b)-(c), phase 13's steps and phase 15's (which
 then checks only both iterators' batches, bit for bit on the card) and
-phase 17(b)-(f); phase 16(a) then moves 64 MB of seeded f32 in place of the
-parameters. Prints the
+phase 17(b)-(f), and phase 18's task trains a 2-layer cut of phase 4's
+model at batch 2 x seq 256; phase 16(a) then moves 64 MB of seeded f32 in
+place of the parameters. Prints the
 kernels as one JSON line, then the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when
 CUDA is missing or the package is not beside this script.
@@ -317,6 +343,14 @@ SERVE_TOL = (0.125, 3e-2)
 # (e): after an eviction the replica holds one model's bytes, within this
 SERVE_MUX_SLACK = 64 << 20
 SERVE_WORKFLOW = "chip_smoke_logits"
+
+# phase 18: a job on a process-isolated cluster trains phase 4's path in a
+# num_gpus=1 task on the GPU node; after remove_node the node's worker must
+# leave nvidia-smi's compute apps, and the head report the node dead, within
+# NODE_GONE_S seconds
+JOB_PATH = "gpt2_medium_job"
+JOB_RESULT = "JOB_RESULT "
+NODE_GONE_S = 30.0
 
 try:   # phase 17's deployments use the port's serve decorators
     from ray_tpu_torch import serve as _serve
@@ -3169,6 +3203,323 @@ def autoscaler_check(torch, smi):
     return out
 
 
+# --- phase 18: the node main and the head's services on the card ------------
+# A process-isolated cluster: a head node process without a GPU and a node
+# process with one slot; a job submitted through the head's job service runs
+# phase 4's path in a num_gpus=1 task, which the workers import from this
+# module by its name. The task's result reaches this process through the
+# job's logs, on a line that starts with JOB_RESULT.
+
+def job_task(smi, skip_main):
+    """Phase 18's task, in a worker of the GPU node: phase 4's path (under
+    --skip-main a 2-layer cut of it at batch 2 x seq 256). Returns the
+    losses, the step ms, the launch counts, where it ran and what it
+    printed."""
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import models
+    from ray_tpu_torch.ops import attention as A
+
+    if skip_main:
+        cfg, batch = dataclasses.replace(models.gpt2_medium(
+            max_seq_len=256, remat_policy="dots"), n_layers=2), 2
+    else:
+        cfg, batch = models.gpt2_medium(max_seq_len=1024,
+                                        remat_policy="dots"), 12
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        counts, result = train_path(torch, A, models, smi, JOB_PATH, cfg,
+                                    (batch,))
+    return {"losses": result["losses"], "grad_norms": result["grad_norms"],
+            "step_ms": result["step_ms"], "launches": counts,
+            "n_layers": cfg.n_layers,
+            "node_id": rt.get_runtime_context().get_node_id().hex(),
+            "pid": os.getpid(),
+            "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "device": torch.cuda.get_device_name(0),
+            "printed": printed.getvalue()}
+
+
+def job_driver(args):
+    """Phase 18's job driver, run by the submitted entrypoint with
+    RTPU_ADDRESS set by the head: it attaches to the cluster, runs
+    job_task in a num_gpus=1 task and prints the result on one line."""
+    import chip_smoke as me
+    import ray_tpu_torch as rt
+
+    t0 = time.perf_counter()
+    rt.init(address=os.environ["RTPU_ADDRESS"])
+    try:
+        out = rt.get(rt.remote(num_gpus=1)(me.job_task).remote(
+            args["smi"], args["skip_main"]), timeout=900)
+    finally:
+        rt.shutdown()
+    for ln in out.pop("printed").splitlines():
+        print(f"  (task) {ln}")
+    out.update(driver_pid=os.getpid(), driver_s=time.perf_counter() - t0)
+    print(JOB_RESULT + json.dumps(out), flush=True)
+
+
+JOB_DRIVER = """\
+import json, sys
+sys.path.insert(0, {root!r})
+import chip_smoke
+chip_smoke.job_driver(json.loads({args!r}))
+"""
+
+
+def card_holders():
+    """The processes that hold a context on the card: the pids of this
+    machine whose open files include a device node /dev/nvidia<N>, and
+    how many compute apps nvidia-smi lists. On the card's machine
+    nvidia-smi names each app by a pid of another pid namespace (1 for
+    every process), so its pids cannot name ours; the holders are found
+    by their handles, and the two counts must agree."""
+    holders = set()
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            fds = os.listdir(f"/proc/{entry}/fd")
+        except OSError:
+            continue
+        for fd in fds:
+            try:
+                target = os.readlink(f"/proc/{entry}/fd/{fd}")
+            except OSError:
+                continue
+            if re.fullmatch(r"/dev/nvidia\d+", target):
+                holders.add(int(entry))
+                break
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    listed = [ln for ln in out.stdout.splitlines() if ln.strip()]
+    return holders, len(listed)
+
+
+def cli_status(session):
+    """`python -m ray_tpu_torch.scripts.cli status` on the head's
+    session: its "GPU: <available> / <total> available" line."""
+    out = subprocess.run(
+        [sys.executable, "-m", "ray_tpu_torch.scripts.cli", "--session",
+         session, "status"], capture_output=True, text=True, timeout=120)
+    if out.returncode != 0:
+        raise SmokeFailure(f"{JOB_PATH}: cli status failed: {out.stderr}")
+    line = next((ln.strip() for ln in out.stdout.splitlines()
+                 if ln.strip().startswith("GPU:")), None)
+    return line, out.stdout
+
+
+def dashboard_sample(address):
+    """The dashboard's newest cluster snapshot (its /api/history ring)."""
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://{address}/api/history",
+                                timeout=30) as resp:
+        samples = json.loads(resp.read())["samples"]
+    return samples[-1] if samples else None
+
+
+def job_phase(torch, smi, by_path, base, skip_main):
+    """Phase 18 (see the module docstring); `base` is phase 4's result
+    (None under --skip-main)."""
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import exceptions
+    from ray_tpu_torch._private.gcs_service import RemoteControlPlane
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.job import JobSubmissionClient
+
+    out = {}
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    cluster = Cluster(process_isolated=True, head_node_args={"num_cpus": 2})
+    try:
+        out["head_ready_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        gpu_node = cluster.add_node(num_cpus=2, num_gpus=1)
+        out["gpu_node_ready_s"] = time.perf_counter() - t0
+        head = cluster.head
+        node_pids = {head.pid, gpu_node.pid}
+        rt.init(address=cluster)
+        try:
+            # (a) the GPU slot is the second node's only
+            gpus = {n["node_id"].hex(): n["resources"].get("GPU")
+                    for n in rt.nodes() if n["alive"]}
+            out["node_gpus"] = gpus
+            log(f"{JOB_PATH}: (a) head node process ready in "
+                f"{out['head_ready_s']:.3f} s, GPU node process in "
+                f"{out['gpu_node_ready_s']:.3f} s; nodes' GPU {gpus}")
+            if gpus != {head.node_id_hex: None, gpu_node.node_id_hex: 1.0}:
+                raise SmokeFailure(f"{JOB_PATH}: (a) nodes' GPU {gpus}")
+
+            # (b) the job, at the addresses the head published
+            gcs = RemoteControlPlane(cluster.gcs_address)
+            try:
+                job_api = gcs.kv_get(b"__rtpu_job_api").decode()
+                dash = gcs.kv_get(b"__rtpu_dashboard").decode()
+            finally:
+                gcs.close()
+            client = JobSubmissionClient(job_api)
+            script = os.path.join(tempfile.mkdtemp(
+                prefix="rtpt_job_", dir=cluster.session_dir), "driver.py")
+            with open(script, "w") as f:
+                f.write(JOB_DRIVER.format(
+                    root=str(Path(__file__).resolve().parent),
+                    args=json.dumps({"smi": smi, "skip_main": skip_main})))
+            t_submit = time.perf_counter()
+            job_id = client.submit_job(
+                entrypoint=f"{sys.executable} {script}")
+
+            # (c) what the dashboard, the CLI and nvidia-smi show while
+            # the task holds the card
+            statuses, apps, held = [], set(), None
+            before, listed_before = card_holders()
+            deadline = time.monotonic() + 900
+            while True:
+                status = client.get_job_status(job_id)["status"]
+                if not statuses or statuses[-1] != status:
+                    statuses.append(status)
+                if status in ("SUCCEEDED", "FAILED", "STOPPED"):
+                    break
+                if time.monotonic() > deadline:
+                    raise SmokeFailure(f"{JOB_PATH}: the job never ended")
+                apps |= card_holders()[0]
+                sample = dashboard_sample(dash)
+                if held is None and sample and sample["gpu_used"] == 1.0:
+                    held = {"sample": sample,
+                            "cli": cli_status(head.ready["session_dir"])[0],
+                            "after_s": time.perf_counter() - t_submit}
+                time.sleep(0.5)
+            out["job_s"] = time.perf_counter() - t_submit
+            after, listed_after = card_holders()
+            apps |= after
+            logs = client.get_job_logs(job_id)
+            line = next((ln for ln in logs.splitlines()
+                         if ln.startswith(JOB_RESULT)), None)
+            for ln in logs.splitlines():
+                if not ln.startswith(JOB_RESULT):
+                    log(f"  (job) {ln}")
+            if status != "SUCCEEDED" or line is None:
+                raise SmokeFailure(f"{JOB_PATH}: job {status}; its logs:\n"
+                                   + logs[-4000:])
+            res = json.loads(line[len(JOB_RESULT):])
+            by_path[JOB_PATH] = res["launches"]
+            out.update(statuses=statuses, result=res, held=held)
+
+            # after the job: the slot is free again
+            t_done = time.time()
+            deadline = time.monotonic() + 30
+            freed = dashboard_sample(dash)
+            while freed is None or freed["ts"] <= t_done:
+                if time.monotonic() > deadline:
+                    break
+                time.sleep(0.5)
+                freed = dashboard_sample(dash)
+            free_cli = cli_status(head.ready["session_dir"])[0]
+            out["freed"] = {"sample": freed, "cli": free_cli}
+            worker = res["pid"]
+            holders = {"worker": worker in apps,
+                       "node_processes": sorted(node_pids & apps),
+                       "driver": res["driver_pid"] in apps,
+                       "before": sorted(before),
+                       "after": sorted(after),
+                       "smi_listed": [listed_before, listed_after]}
+            out["context_holders"] = holders
+
+            n_steps = len(res["losses"])
+            per_step = {k: v / n_steps for k, v in res["launches"].items()}
+            want = {"flash_fwd": 2 * res["n_layers"],
+                    "flash_bwd_dq": res["n_layers"],
+                    "flash_bwd_dkv": res["n_layers"]}
+            same = (base is not None and res["losses"] == base["losses"]
+                    and res["grad_norms"] == base["grad_norms"])
+            out["losses_bit_equal"] = same
+            log(f"{JOB_PATH}: (b) job {job_id} {statuses} in "
+                f"{out['job_s']:.1f} s from submit (its driver "
+                f"{res['driver_s']:.1f} s); the task in pid {worker} on node "
+                f"{res['node_id'][:12]} (CUDA_VISIBLE_DEVICES "
+                f"{res['visible']!r}, {res['device']}): step "
+                f"{res['step_ms']:.1f} ms" + (
+                    f" (phase 4 {base['step_ms']:.1f} ms)" if base else "")
+                + f", launches per step {per_step}; losses {res['losses']}; "
+                f"equal to phase 4's bit for bit: {same} ({smi})")
+            log(f"{JOB_PATH}: (c) while the task held the card "
+                f"({held['after_s']:.1f} s after submit) the dashboard's "
+                f"gpu_used {held['sample']['gpu_used']} of "
+                f"{held['sample']['gpu_total']}, cli status {held['cli']!r}; "
+                f"after the job gpu_used "
+                f"{freed['gpu_used'] if freed else None}, cli "
+                f"{free_cli!r}; processes holding the card "
+                f"{sorted(before)} before the job (nvidia-smi lists "
+                f"{listed_before}), {sorted(after)} after ({listed_after}), "
+                f"{sorted(apps)} seen in all: the task's worker {worker} "
+                f"{holders['worker']}, node processes {sorted(node_pids)} "
+                f"{holders['node_processes'] or 'none'}, the job's driver "
+                f"{res['driver_pid']} {holders['driver']}"
+                if held else f"{JOB_PATH}: (c) the dashboard never showed "
+                "the GPU in use")
+            bad = []
+            if res["node_id"] != gpu_node.node_id_hex:
+                bad.append(f"the task ran on node {res['node_id']}")
+            if per_step != want:
+                bad.append(f"launches per step {per_step}, want {want}")
+            if base is not None and not same:
+                bad.append("the losses differ from phase 4's")
+            if held is None or held["cli"] != "GPU: 0 / 1 available":
+                bad.append(f"while held: {held}")
+            if (freed is None or freed["gpu_used"] != 0.0
+                    or free_cli != "GPU: 1 / 1 available"):
+                bad.append(f"after the job: {out['freed']}")
+            if (not holders["worker"] or holders["node_processes"]
+                    or holders["driver"] or worker not in after
+                    or after - before != {worker}
+                    or listed_before != len(before)
+                    or listed_after != len(after)):
+                bad.append(f"context holders {holders}, seen {sorted(apps)}")
+            if bad:
+                raise SmokeFailure(f"{JOB_PATH}: " + "; ".join(bad))
+
+            # (d) the GPU node removed: its worker lets the card go and
+            # the head reports the node dead
+            t0 = time.perf_counter()
+            cluster.remove_node(gpu_node)
+            gone = dead = None
+            while gone is None or dead is None:
+                elapsed = time.perf_counter() - t0
+                if elapsed > NODE_GONE_S:
+                    raise SmokeFailure(
+                        f"{JOB_PATH}: (d) {NODE_GONE_S} s after remove_node: "
+                        f"worker released the card: {gone is not None}, "
+                        f"node reported dead: {dead is not None}")
+                if gone is None:
+                    now, listed = card_holders()
+                    if worker not in now and listed == len(before):
+                        gone = elapsed
+                if dead is None and not any(
+                        n["alive"] for n in rt.nodes()
+                        if n["node_id"].hex() == gpu_node.node_id_hex):
+                    dead = elapsed
+                time.sleep(0.2)
+            out.update(released_s=gone, dead_s=dead)
+            log(f"{JOB_PATH}: (d) after remove_node the worker let the "
+                f"card go (nvidia-smi back to {len(before)} app(s)) in "
+                f"{gone:.2f} s and the head reported the node dead in "
+                f"{dead:.2f} s (limit {NODE_GONE_S:.0f} s)")
+        except exceptions.RayTpuError as exc:
+            raise SmokeFailure(f"{JOB_PATH}: {type(exc).__name__}: {exc}") \
+                from exc
+        finally:
+            rt.shutdown()
+    finally:
+        cluster.shutdown()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def run(args) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3379,6 +3730,16 @@ def run(args) -> int:
     phase17_s = time.perf_counter() - t0
     log(f"phase 17: {phase17_s:.1f} s")
 
+    # phase 18: a process-isolated cluster with a GPU node process; a job
+    # submitted to the head trains phase 4's path there (a 2-layer cut
+    # under --skip-main), watched through the dashboard, the CLI and
+    # nvidia-smi, then the node is removed
+    gc.collect()
+    torch.cuda.empty_cache()
+    cluster_job = job_phase(torch, smi, by_path, main.get("gpt2_medium"),
+                            args.skip_main)
+    log(f"phase 18: {cluster_job['phase_s']:.1f} s")
+
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name],
                 "launches": by_path["gpt2_medium"][name],
@@ -3398,7 +3759,8 @@ def run(args) -> int:
                        "model_check": model, "ring": ring,
                        "main": main, "rl": rl_out, "runtime": runtime,
                        "comm": comm, "phase16_s": phase16_s,
-                       "serve": serving, "phase17_s": phase17_s},
+                       "serve": serving, "phase17_s": phase17_s,
+                       "cluster_job": cluster_job},
                       f, indent=1)
     log(json.dumps({"kernels": kernels}))
     log(smi)
@@ -3418,7 +3780,7 @@ def main() -> int:
     ap.add_argument("--skip-main", action="store_true",
                     help="skip the train paths, phases 4-6, 8-11, 14, "
                     "16(b)-(c) and 17(b)-(f) and the steps of phases 13 and "
-                    "15 (debugging)")
+                    "15; phase 18's task trains a 2-layer cut (debugging)")
     args = ap.parse_args()
     try:
         return run(args)

@@ -15,7 +15,10 @@ streaming datasets whose device batches land on the card as torch tensors
 (``data``), the host collectives with ``MeshGroup`` (``comm``), which
 take torch tensors, CUDA and bf16 ones included, model serving from
 replica actors (``serve``), durable workflows (``workflow``) and the
-autoscaler (``autoscaler``).
+autoscaler (``autoscaler``); node processes (``_private/main.py``,
+``cluster_utils.Cluster(process_isolated=True)``) with the head's job
+service (``job``) and dashboard (``dashboard``), and the CLI
+(``scripts.cli``).
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``; callers that sample on the CPU as the JAX runners do pass
 it to the env runners.
@@ -74,11 +77,13 @@ def init(address: Optional[Any] = None,
          _system_config: Optional[Dict[str, Any]] = None,
          num_tpus: Optional[int] = None) -> None:
     """Start a local node (head) and connect, or connect to an existing
-    in-process cluster (pass a ``cluster_utils.Cluster``).
+    cluster: a ``cluster_utils.Cluster`` (in-process or process-isolated)
+    or the ``"host:port"`` of a head's GCS.
 
     The node's ``"GPU"`` resource is ``num_gpus`` (``num_tpus`` is accepted
     for scripts written for ``ray_tpu`` and means the same), else
-    ``resources["GPU"]``, else the number of CUDA devices this process sees.
+    ``resources["GPU"]``, else the number of CUDA devices this process sees
+    (counted without torch or a CUDA context, ``_private/gpus.py``).
 
     Reference analogue: ``ray.init`` (``_private/worker.py:1139``) — the
     local-bootstrap path spawns the control plane + node service + worker
@@ -98,13 +103,16 @@ def init(address: Optional[Any] = None,
     if address is not None:
         from . import cluster_utils
         if isinstance(address, cluster_utils.Cluster):
-            # attach to an in-process multi-node cluster (tests/tools)
-            cluster = address
-            _global_gcs = cluster.gcs
-            _global_node = cluster.head
-            _session_dir = cluster.session_dir
-            _owns_cluster = False
-            address = None
+            if address.process_isolated:
+                address = address.gcs_address
+            else:
+                # attach to an in-process multi-node cluster (tests/tools)
+                cluster = address
+                _global_gcs = cluster.gcs
+                _global_node = cluster.head
+                _session_dir = cluster.session_dir
+                _owns_cluster = False
+                address = None
         if isinstance(address, str):
             # attach to a networked cluster: "host:port" of the head GCS
             # (reference analogue: ``ray.init(address=...)`` joining a
@@ -142,7 +150,8 @@ def init(address: Optional[Any] = None,
         if num_gpus is not None:
             res.setdefault("GPU", float(num_gpus))
         elif "GPU" not in res:
-            detected = _detect_gpus()
+            from ._private.gpus import visible_gpu_count
+            detected = visible_gpu_count()
             if detected:
                 res["GPU"] = float(detected)
         if object_store_memory:
@@ -232,17 +241,6 @@ def _install_driver_failure_hook() -> None:
         _prev_excepthook(tp, val, tb)
 
     _sys.excepthook = _hook
-
-
-def _detect_gpus() -> int:
-    """CUDA devices this process sees (``CUDA_VISIBLE_DEVICES`` honoured),
-    counted without creating a CUDA context; 0 where torch is missing or
-    has no CUDA."""
-    try:
-        import torch
-    except ImportError:
-        return 0
-    return torch.cuda.device_count()
 
 
 def is_initialized() -> bool:

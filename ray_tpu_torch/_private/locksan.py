@@ -139,6 +139,8 @@ REGISTRY: Dict[str, tuple] = {
                            "per-process ArenaReader cache"),
     "native.lib": ("_private/native.py", "lock", 76,
                    "one-time native library build/load"),
+    "ext.build": ("ops/_ext.py", "lock", 78,
+                  "one-time CUDA kernel build/load"),
     # --- transport (innermost of the send path; the drainer protocol
     # --- holds conn.flush while failing futures through on_send_error)
     "conn.flush": ("_private/protocol.py", "lock", 85,

@@ -93,7 +93,7 @@ class _Staging:
                         v.shape, dtype=host_dtype, pin_memory=True)
                 np.copyto(buf.numpy(), v)
                 out[k] = _cast(buf.to(device, non_blocking=True), dtype)
-            self.event.record(stream)
+            stream.record_event(self.event)
         return out, self.event
 
 

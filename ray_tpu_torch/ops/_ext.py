@@ -19,9 +19,10 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 from pathlib import Path
 from typing import Dict, List
+
+from .._private import locksan
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -57,7 +58,7 @@ class FlashParams(ctypes.Structure):
     )
 
 
-_lock = threading.Lock()
+_lock = locksan.lock("ext.build")
 _fns: Dict[str, ctypes._CFuncPtr] = {}
 build_log: List[str] = []   # nvcc's -Xptxas -v output of the last build
 

@@ -47,6 +47,13 @@ SERVE_MODULES = (
     "serve.multiplex", "serve.proxy", "serve.replica",
     "serve.request_context", "workflow", "autoscaler",
     "autoscaler.autoscaler", "autoscaler.node_provider")
+# the node main and the head's services (job submission, the dashboard)
+# with the CLI and its lints: none imports torch, so a node process never
+# does
+NODE_MODULES = (
+    "_private.main", "_private.gpus", "job", "job.client", "job.http_server", "job.manager",
+    "dashboard", "scripts", "scripts.cli", "scripts.check_concurrency",
+    "scripts.check_metrics")
 # ray_tpu layers a copied module reaches lazily and the port does not have
 # yet: importing one fails as for any missing module (none is left)
 NOT_PORTED = set()
@@ -78,7 +85,8 @@ def test_import_leaves_jax_and_ray_tpu_out():
             "ray_tpu_torch.train.config, ray_tpu_torch.train.result, "
             "ray_tpu_torch.rl.offline, "
             + ", ".join(f"ray_tpu_torch.{m}" for m in RUNTIME_MODULES
-                        + DATA_MODULES + HOST_MODULES + SERVE_MODULES)
+                        + DATA_MODULES + HOST_MODULES + SERVE_MODULES
+                        + NODE_MODULES)
             + "; "
             "sys.path.insert(0, 'tests'); import torch_dist_worker; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -94,11 +102,14 @@ def test_import_leaves_jax_and_ray_tpu_out():
 
 def test_runtime_import_is_light():
     """The package and the runtime a worker process runs import no torch,
-    JAX or ray_tpu, nor do the data modules whose tasks a worker runs: the
-    ML subpackages load on first attribute access."""
+    JAX or ray_tpu, nor do the data modules whose tasks a worker runs, nor
+    the node main, the job service, the dashboard and the CLI that a node
+    process runs: the ML subpackages load on first attribute access."""
     code = ("import sys, ray_tpu_torch, ray_tpu_torch._private.node, "
             "ray_tpu_torch._private.worker, ray_tpu_torch.data.dataset, "
-            "ray_tpu_torch.data.shuffle, ray_tpu_torch.data.iterator; "
+            "ray_tpu_torch.data.shuffle, ray_tpu_torch.data.iterator, "
+            "ray_tpu_torch._private.main, ray_tpu_torch.job, "
+            "ray_tpu_torch.dashboard, ray_tpu_torch.scripts.cli; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'ray_tpu', 'torch')]; print(bad); "
             "import ray_tpu_torch as rt; rt.models, rt.rl, rt.train; "
@@ -213,12 +224,17 @@ def test_no_forbidden_imports(path):
 def test_no_library_attention_in_package():
     """The port's attention is its own kernels: no SDPA, cuDNN attention,
     flash-attn package or torch.compile anywhere in the package.
-    (chip_smoke.py times SDPA as a yardstick only.)"""
+    (chip_smoke.py times SDPA as a yardstick only.) The standard library's
+    ``re.compile``, which the lints in ``scripts/`` use, is not torch's."""
     for path in PKG.rglob("*.py"):
         tree = ast.parse(path.read_text())
         for node in ast.walk(tree):
             name = (node.attr if isinstance(node, ast.Attribute) else
                     node.id if isinstance(node, ast.Name) else None)
+            if (name == "compile" and isinstance(node, ast.Attribute)
+                    and isinstance(node.value, ast.Name)
+                    and node.value.id == "re"):
+                continue
             assert name not in ("scaled_dot_product_attention", "compile",
                                 "flash_attn", "cudnn"), (path, name)
 

@@ -128,8 +128,6 @@ def test_num_tpus_means_gpus(runtime):
 def test_cluster_add_node_num_gpus():
     from ray_tpu_torch.cluster_utils import Cluster
 
-    with pytest.raises(NotImplementedError, match="main"):
-        Cluster(process_isolated=True)
     cluster = Cluster(head_node_args={"num_cpus": 1})
     try:
         cluster.add_node(num_cpus=1, num_gpus=2)
@@ -144,6 +142,136 @@ def test_cluster_add_node_num_gpus():
             rt.shutdown()
     finally:
         cluster.shutdown()
+
+
+def _node_env(**extra):
+    """A node process's environment: the task bodies' module on its path
+    (its workers import it by name), and `extra`."""
+    import os
+
+    tests = os.path.dirname(os.path.abspath(__file__))
+    pp = os.environ.get("PYTHONPATH", "")
+    return {"PYTHONPATH": tests + (os.pathsep + pp if pp else ""), **extra}
+
+
+def _node_gpus():
+    return {n["node_id"].hex(): n["resources"].get("GPU")
+            for n in rt.nodes() if n["alive"]}
+
+
+def _loaded_libraries(pid):
+    with open(f"/proc/{pid}/maps") as f:
+        return f.read()
+
+
+def test_process_isolated_gpu_node_maps_its_slot():
+    """A node process started with one GPU slot and
+    CUDA_VISIBLE_DEVICES=3 takes a num_gpus=1 task from a driver attached
+    to a head that has no GPU: the task runs on that node and sees device
+    3. Neither node process loads torch or the CUDA driver."""
+    from ray_tpu_torch.cluster_utils import Cluster
+
+    cluster = Cluster(process_isolated=True,
+                      head_node_args={"num_cpus": 1, "env": _node_env()})
+    try:
+        gpu_node = cluster.add_node(
+            num_cpus=1, num_gpus=1,
+            env=_node_env(CUDA_VISIBLE_DEVICES="3"))
+        rt.init(address=cluster)
+        try:
+            assert _node_gpus() == {cluster.head.node_id_hex: None,
+                                    gpu_node.node_id_hex: 1.0}
+            ids, visible, home, torch_loaded = rt.get(
+                rt.remote(T.slot_home).options(num_gpus=1).remote(NAME),
+                timeout=60)
+            assert ids == {"GPU": [0]} and visible == "3"
+            assert home == gpu_node.node_id_hex and not torch_loaded
+        finally:
+            rt.shutdown()
+        for node in cluster.nodes:
+            maps = _loaded_libraries(node.pid)
+            assert "libtorch" not in maps and "libcuda" not in maps
+    finally:
+        cluster.shutdown()
+
+
+def test_process_isolated_node_maps_slot_i_to_the_ith_visible_device():
+    """CUDA_VISIBLE_DEVICES set to a subset: slot i is the subset's i-th
+    device, as for an in-process node."""
+    from ray_tpu_torch.cluster_utils import Cluster
+
+    cluster = Cluster(process_isolated=True,
+                      head_node_args={
+                          "num_cpus": 2, "num_gpus": 2,
+                          "env": _node_env(CUDA_VISIBLE_DEVICES="5,2")})
+    try:
+        rt.init(address=cluster)
+        try:
+            holders = [rt.remote(T.Slots).options(num_gpus=1).remote()
+                       for _ in range(2)]
+            held = rt.get([h.ids.remote(NAME) for h in holders], timeout=60)
+            assert sorted((ids["GPU"][0], visible) for ids, visible in held) \
+                == [(0, "5"), (1, "2")]
+        finally:
+            rt.shutdown()
+    finally:
+        cluster.shutdown()
+
+
+def test_node_main_without_num_gpus_counts_the_visible_cards(tmp_path):
+    """A node started without --num-gpus counts the cards its process
+    sees, without torch: none on a host without an NVIDIA driver."""
+    import json
+    import os
+    import subprocess
+    import sys
+    import time
+
+    from ray_tpu_torch._private import gpus
+
+    if gpus._physical_gpu_count():
+        pytest.skip("this checks a host without NVIDIA devices")
+    ready = tmp_path / "ready.json"
+    env = {k: v for k, v in os.environ.items()
+           if k != "CUDA_VISIBLE_DEVICES"}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "ray_tpu_torch._private.main", "--head",
+         "--num-cpus", "1", "--dashboard-port", "-1",
+         "--session-dir", str(tmp_path / "node"),
+         "--ready-file", str(ready)], env=env,
+        stdout=subprocess.DEVNULL)
+    try:
+        deadline = time.monotonic() + 30
+        while not ready.exists():
+            assert proc.poll() is None and time.monotonic() < deadline
+            time.sleep(0.05)
+        port = json.loads(ready.read_text())["gcs_port"]
+        rt.init(address=f"127.0.0.1:{port}")
+        try:
+            assert rt.cluster_resources() == {"CPU": 1.0}
+        finally:
+            rt.shutdown()
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)
+
+
+def test_visible_gpu_count_reads_cuda_visible_devices():
+    """CUDA_VISIBLE_DEVICES read as CUDA reads it: unset is every device,
+    empty none, and the list stops at its first entry that names no
+    device."""
+    from ray_tpu_torch._private.gpus import visible_gpu_count
+
+    assert visible_gpu_count(None, physical=4) == 4
+    assert visible_gpu_count("", physical=4) == 0
+    assert visible_gpu_count("0,1", physical=4) == 2
+    assert visible_gpu_count("3", physical=4) == 1
+    assert visible_gpu_count("3", physical=2) == 0
+    assert visible_gpu_count("1,7,0", physical=4) == 1
+    assert visible_gpu_count("1,1", physical=4) == 1
+    assert visible_gpu_count("GPU-8a1c,0", physical=2) == 2
+    assert visible_gpu_count("0,x", physical=2) == 1
+    assert visible_gpu_count("0", physical=0) == 0
 
 
 @pytest.mark.cuda

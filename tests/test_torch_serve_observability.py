@@ -314,11 +314,10 @@ def test_grpc_request_id_roundtrip(serve_session):
 
 
 def test_cli_serve_status_and_requests(serve_session):
-    """What `rtpu serve-status` and `rtpu requests` render, read through
-    the state calls they make (the port has no CLI yet: its form of this
-    test waits for ``scripts/cli.py``): the health table's row with its
-    p99, the access rows with their request ids, and the JSON form's
-    limit."""
+    """What `rtpt serve-status` and `rtpt requests` render, read through
+    the state calls they make (the CLI's own form is the next test): the
+    health table's row with its p99, the access rows with their request
+    ids, and the JSON form's limit."""
 
     @serve.deployment
     def cliecho(x):
@@ -346,6 +345,48 @@ def test_cli_serve_status_and_requests(serve_session):
     assert all(r["request_id"] for r in rows)
     limited = rstate.serve_requests(limit=2)
     assert len(json.loads(json.dumps(limited, default=str))) <= 2
+
+
+def test_cli_serve_status_and_requests_cli(serve_session):
+    """`rtpt serve-status` and `rtpt requests` attach to the session
+    and render the health table / access rows (the CLI form of the test
+    above, as ray_tpu's test runs it)."""
+    import subprocess
+    import sys
+
+    @serve.deployment
+    def cliecho(x):
+        return x
+
+    handle = serve.run(cliecho.bind())
+    for i in range(3):
+        assert handle.remote(i).result(timeout=15) == i
+
+    def visible():
+        dep = (rstate.serve_health().get("deployments")
+               or {}).get("cliecho")
+        return dep and (dep.get("latency") or {}).get("count", 0) >= 3
+
+    assert _wait(visible, timeout=20)
+    session = ray_tpu_torch._session_dir
+    status = subprocess.run(
+        [sys.executable, "-m", "ray_tpu_torch.scripts.cli", "--session",
+         session, "serve-status"],
+        capture_output=True, text=True, timeout=60)
+    assert status.returncode == 0, status.stderr
+    assert "cliecho" in status.stdout and "p99" in status.stdout
+    reqs = subprocess.run(
+        [sys.executable, "-m", "ray_tpu_torch.scripts.cli", "--session",
+         session, "requests"],
+        capture_output=True, text=True, timeout=60)
+    assert reqs.returncode == 0, reqs.stderr
+    assert "cliecho" in reqs.stdout and "request_id" in reqs.stdout
+    reqs_json = subprocess.run(
+        [sys.executable, "-m", "ray_tpu_torch.scripts.cli", "--session",
+         session, "requests", "--format", "json", "--limit", "2"],
+        capture_output=True, text=True, timeout=60)
+    assert reqs_json.returncode == 0, reqs_json.stderr
+    assert len(json.loads(reqs_json.stdout)) <= 2
 
 
 def test_scale_down_zeroes_dead_replica_gauge(serve_session):

@@ -249,6 +249,38 @@ def gang_loop(config):
 
 
 
+def job_train_steps(params_path, tokens_path, steps, opt_kw):
+    """f32 llama_tiny on the CPU, no mesh, from the saved parameters:
+    `steps` train steps on the saved tokens through the plain attention,
+    on one intra-op thread (a task of one CPU runs on one). Returns the
+    losses and grad norms. A submitted job's task and the test process
+    both run it, for the same bits."""
+    from ray_tpu_torch.models import convert, gpt, training
+
+    threads = torch.get_num_threads()
+    settle_cpu_numerics(1)
+    try:
+        model = gpt.GPT(gpt.llama_tiny(dtype=torch.float32), device="cpu",
+                        seed=0)
+        data = np.load(params_path)
+        convert.load_full_state_dict(
+            model, {n: torch.tensor(data[n]) for n in data.files})
+        opt = training.make_optimizer(**opt_kw)
+        state = training.init_train_state(model, opt, device="cpu")
+        step = training.make_train_step(model, opt, device="cpu")
+        batch = {"tokens": torch.tensor(np.load(tokens_path)["tokens"])
+                 .long()}
+        losses, grad_norms = [], []
+        for _ in range(steps):
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+            grad_norms.append(float(m["grad_norm"]))
+        return {"losses": losses, "grad_norms": grad_norms,
+                "pid": os.getpid()}
+    finally:
+        torch.set_num_threads(threads)
+
+
 def _model(config_kw, spec_kw, params_path, family="llama_tiny",
            check_shards=False):
     from ray_tpu_torch.models import convert, gpt

@@ -80,6 +80,16 @@ def slots(rt_name):
             os.environ.get("CUDA_VISIBLE_DEVICES"))
 
 
+def slot_home(rt_name):
+    """This task's GPU slots, CUDA_VISIBLE_DEVICES, node id (hex) and
+    whether its worker has imported torch."""
+    rt = importlib.import_module(rt_name)
+    ctx = rt.get_runtime_context()
+    return (ctx.get_accelerator_ids(),
+            os.environ.get("CUDA_VISIBLE_DEVICES"),
+            ctx.get_node_id().hex(), "torch" in sys.modules)
+
+
 def cuda_probe():
     """Touch torch.cuda (which reads CUDA_VISIBLE_DEVICES once) and report
     what this worker sees."""
