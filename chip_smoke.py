@@ -212,6 +212,25 @@ Phases, each fatal on failure (non-zero exit, no result line):
     node: within NODE_GONE_S its worker has let the card go (nvidia-smi's
     count back to before the job) and the head reports the node dead.
     Prints the job's seconds from submit and the phase's.
+19. a GPU runtime's task kinds on ``ray_tpu_torch.init(num_cpus=4)``. (a)
+    a ``num_gpus=1`` task with ``num_returns="streaming"`` runs phase 4's
+    path (same weights, tokens and steps) in a thread and yields each
+    step's loss, grad norm and ms as the step ends, stamped with the
+    worker's clock, then the launch counts; fails unless the driver got
+    the first item before the last step ended, the losses and grad norms
+    equal phase 4's bit for bit and the task launched 48 / 24 / 24 a step.
+    Then a ``num_gpus=1`` stream of STREAM_CLOSE_ITEMS sums on the card,
+    held by the backpressure window after 2 items are read, is closed:
+    its producer must run out and the next ``num_gpus=1`` task start on
+    slot 0 within CLOSE_SLOT_S. (b) a CPU task makes phase 4's tokens from
+    seed 1, a ``num_gpus=1`` task runs gpt2_medium's seed-0 forward on them
+    and returns the f32 logits at the last position (a CPU tensor [12,
+    50304]); both objects are freed from the store and the directory, and
+    the driver's second get must rebuild them from lineage: each task run
+    twice (files in the session directory), the forward's 24 / 0 / 0
+    launches both times, the logits bit-equal. Prints the first item's
+    seconds beside the stream's, the rebuild's beside the first get's,
+    the close-to-slot seconds and the phase's.
 
 ``--profile PATH`` profiles two more steps of each train path and writes
 one table per path (PATH with the path's name before its suffix), and
@@ -219,8 +238,8 @@ one forward of phase 17's replica; ``--skip-main`` skips the train paths,
 phases 4-6, 8-11, 14 and 16(b)-(c), phase 13's steps and phase 15's (which
 then checks only both iterators' batches, bit for bit on the card) and
 phase 17(b)-(f), and phase 18's task trains a 2-layer cut of phase 4's
-model at batch 2 x seq 256; phase 16(a) then moves 64 MB of seeded f32 in
-place of the parameters. Prints the
+model at batch 2 x seq 256, as do phase 19's tasks; phase 16(a) then moves
+64 MB of seeded f32 in place of the parameters. Prints the
 kernels as one JSON line, then the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when
 CUDA is missing or the package is not beside this script.
@@ -351,6 +370,15 @@ SERVE_WORKFLOW = "chip_smoke_logits"
 JOB_PATH = "gpt2_medium_job"
 JOB_RESULT = "JOB_RESULT "
 NODE_GONE_S = 30.0
+
+# phase 19: a streaming num_gpus=1 task trains phase 4's path, and a lost
+# result of the card is rebuilt from lineage; a closed stream of
+# STREAM_CLOSE_ITEMS items (past the backpressure window) must free the slot
+# for the next num_gpus=1 task within CLOSE_SLOT_S seconds
+STREAM_PATH = "gpt2_medium_stream"
+LINEAGE_PATH = "gpt2_medium_lineage"
+STREAM_CLOSE_ITEMS = 100
+CLOSE_SLOT_S = 30.0
 
 try:   # phase 17's deployments use the port's serve decorators
     from ray_tpu_torch import serve as _serve
@@ -974,7 +1002,7 @@ def moe_active_flops(cfg, n_tokens):
 
 def train_path(torch, A, models, smi_name, name, cfg, batches, warmup=2,
                steps=5, profile_path=None, mesh=None, calls=None,
-               tokens=None, params_out=None):
+               tokens=None, params_out=None, on_step=None):
     """Train steps of `cfg` at seq cfg.max_seq_len through GPT ->
     init_train_state -> make_train_step (on `mesh` when given) on tokens
     from a seeded numpy generator: the batch from `batches` (pick_batch
@@ -982,7 +1010,9 @@ def train_path(torch, A, models, smi_name, name, cfg, batches, warmup=2,
     counts (and the call counts of `calls`, a `counting` dict) set to 0
     just before and read just after. `tokens` (a CPU tensor) replaces the
     generated ones; `params_out`, a dict, receives the parameters after
-    the steps as CPU f32 tensors. Returns (counts, result)."""
+    the steps as CPU f32 tensors; `on_step(i, loss, grad_norm, ms)` is
+    called as each step ends (which then waits for the card: the step's ms
+    and the timed steps' include the wait). Returns (counts, result)."""
     from ray_tpu_torch.models.moe import capacity
     from ray_tpu_torch.models.training import flops_per_token
 
@@ -1029,14 +1059,23 @@ def train_path(torch, A, models, smi_name, name, cfg, batches, warmup=2,
     for k in calls or ():
         calls[k] = 0
     metrics = []
-    for _ in range(warmup):
+
+    def take_step():
+        nonlocal state
+        t = time.perf_counter()
         state, m = step(state, batch_dict)
         metrics.append(m)
+        if on_step is not None:
+            loss, norm = float(m["loss"]), float(m["grad_norm"])
+            on_step(len(metrics) - 1, loss, norm,
+                    (time.perf_counter() - t) * 1e3)
+
+    for _ in range(warmup):
+        take_step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(steps):
-        state, m = step(state, batch_dict)
-        metrics.append(m)
+        take_step()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = dict(A.launches)
@@ -3221,12 +3260,7 @@ def job_task(smi, skip_main):
     from ray_tpu_torch import models
     from ray_tpu_torch.ops import attention as A
 
-    if skip_main:
-        cfg, batch = dataclasses.replace(models.gpt2_medium(
-            max_seq_len=256, remat_policy="dots"), n_layers=2), 2
-    else:
-        cfg, batch = models.gpt2_medium(max_seq_len=1024,
-                                        remat_policy="dots"), 12
+    cfg, batch = phase_cut(skip_main)
     printed = io.StringIO()
     with contextlib.redirect_stdout(printed):
         counts, result = train_path(torch, A, models, smi, JOB_PATH, cfg,
@@ -3520,6 +3554,295 @@ def job_phase(torch, smi, by_path, base, skip_main):
     return out
 
 
+def phase_cut(skip_main):
+    """Phase 4's model and batch, or under --skip-main phase 18's 2-layer
+    cut of it at batch 2 x seq 256."""
+    from ray_tpu_torch import models
+
+    if skip_main:
+        return dataclasses.replace(models.gpt2_medium(
+            max_seq_len=256, remat_policy="dots"), n_layers=2), 2
+    return models.gpt2_medium(max_seq_len=1024, remat_policy="dots"), 12
+
+
+def stream_train(smi, skip_main):
+    """Phase 19(a)'s streaming task, in a num_gpus=1 worker: phase 4's path
+    (phase_cut) in a thread, each step's loss, grad norm and ms yielded as
+    the step ends, stamped with this worker's clock; then one last item
+    with the launch counts and where it ran."""
+    import queue
+    import threading
+
+    import torch
+
+    from ray_tpu_torch import models
+    from ray_tpu_torch.ops import attention as A
+
+    cfg, batch = phase_cut(skip_main)
+    items = queue.Queue()
+    done = {}
+
+    def on_step(i, loss, norm, ms):
+        items.put({"step": i, "loss": loss, "grad_norm": norm,
+                   "step_ms": ms, "t_end": time.time()})
+
+    def body():
+        printed = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(printed):
+                done["counts"], done["result"] = train_path(
+                    torch, A, models, smi, STREAM_PATH, cfg, (batch,),
+                    on_step=on_step)
+        except BaseException as exc:   # raised again in the generator
+            done["error"] = exc
+        finally:
+            done["printed"] = printed.getvalue()
+            items.put(None)
+
+    runner = threading.Thread(target=body, name="chip-smoke-stream-train")
+    runner.start()
+    while (item := items.get()) is not None:
+        yield item
+    runner.join()
+    if "error" in done:
+        raise done["error"]
+    yield {"launches": done["counts"], "n_layers": cfg.n_layers,
+           "step_ms": done["result"]["step_ms"], "pid": os.getpid(),
+           "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+           "device": torch.cuda.get_device_name(0),
+           "printed": done["printed"]}
+
+
+def paced_stream(n, progress):
+    """Phase 19(a)'s second stream, num_gpus=1: `n` small sums on the card,
+    the count yielded so far written to `progress` before each item, and
+    "done" once the last is out."""
+    import torch
+
+    x = torch.arange(1024, device="cuda", dtype=torch.float32)
+    for i in range(n):
+        Path(progress).write_text(str(i + 1))
+        yield float((x * i).sum())
+    Path(progress).write_text("done")
+
+
+def slot_probe(progress):
+    """Phase 19(a): a num_gpus=1 task's start on this worker's clock, its
+    slot and what the closed stream last wrote."""
+    import ray_tpu_torch as rt
+
+    return {"t_start": time.time(), "pid": os.getpid(),
+            "slots": rt.get_runtime_context().get_accelerator_ids(),
+            "progress": Path(progress).read_text()}
+
+
+def _mark(marks, kind):
+    """One file in `marks` for each execution of a phase-19(b) task."""
+    Path(marks, f"{kind}.{os.getpid()}.{time.time_ns()}").touch()
+
+
+def lineage_tokens(batch, seq, vocab, seed, marks):
+    """Phase 19(b)'s CPU task: the [batch, seq] tokens from `seed`."""
+    import torch
+
+    _mark(marks, "tokens")
+    return torch.from_numpy(_tokens(batch, seq, vocab, seed))
+
+
+def lineage_logits(tokens, skip_main, marks):
+    """Phase 19(b)'s num_gpus=1 task: phase_cut's model from seed 0, one
+    forward of `tokens` on the card through the flash forward kernel; the
+    f32 logits at the last position as a CPU tensor, the launch counts of
+    the forward and where it ran."""
+    import torch
+
+    from ray_tpu_torch import models
+    from ray_tpu_torch.ops import attention as A
+
+    _mark(marks, "logits")
+    cfg, _ = phase_cut(skip_main)
+    model = models.GPT(cfg, device="cuda", seed=0).eval()
+    A.reset_launch_counts()
+    with torch.inference_mode():
+        logits = model.apply(tokens.cuda())[:, -1].float().cpu()
+    torch.cuda.synchronize()
+    return {"logits": logits.clone(), "launches": dict(A.launches),
+            "n_layers": cfg.n_layers, "pid": os.getpid(),
+            "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "device": torch.cuda.get_device_name(0)}
+
+
+def task_kinds_phase(torch, smi, by_path, base, skip_main):
+    """Phase 19 (see the module docstring); `base` is phase 4's result
+    (None under --skip-main)."""
+    import tempfile
+
+    import chip_smoke as me
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import exceptions
+    from ray_tpu_torch._private.config import CONFIG
+
+    out = {}
+    t_phase = time.perf_counter()
+    rt.init(num_cpus=4)
+    try:
+        # (a) a streaming training task, consumed while it trains
+        t_submit = time.time()
+        gen = rt.remote(num_gpus=1)(me.stream_train).options(
+            num_returns="streaming").remote(smi, skip_main)
+        items, arrived = [], []
+        for ref in gen:
+            items.append(rt.get(ref, timeout=900))
+            arrived.append(time.time())
+        final, steps = items[-1], items[:-1]
+        for ln in final.pop("printed").splitlines():
+            log(f"  (task) {ln}")
+        by_path[STREAM_PATH] = final["launches"]
+        losses = [x["loss"] for x in steps]
+        norms = [x["grad_norm"] for x in steps]
+        n_layers = final["n_layers"]
+        per_step = {k: v / len(steps) for k, v in final["launches"].items()}
+        want = {"flash_fwd": 2 * n_layers, "flash_bwd_dq": n_layers,
+                "flash_bwd_dkv": n_layers}
+        same = (base is not None and losses == base["losses"]
+                and norms == base["grad_norms"])
+        first_s, total_s = arrived[0] - t_submit, arrived[-1] - t_submit
+        ahead_s = steps[-1]["t_end"] - arrived[0]
+        out["stream"] = {"losses": losses, "grad_norms": norms,
+                         "step_ms": [x["step_ms"] for x in steps],
+                         "first_item_s": first_s, "total_s": total_s,
+                         "first_before_last_step_s": ahead_s,
+                         "launches_per_step": per_step,
+                         "losses_bit_equal": same, "pid": final["pid"],
+                         "visible": final["visible"]}
+        log(f"{STREAM_PATH}: (a) {len(steps)} steps streamed from a "
+            f"num_gpus=1 task (pid {final['pid']}, CUDA_VISIBLE_DEVICES "
+            f"{final['visible']!r}, {final['device']}): the first item "
+            f"{first_s:.3f} s after submit, {ahead_s:.3f} s before the last "
+            f"step ended (worker clock), the last {total_s:.3f} s; step ms "
+            f"{[round(x['step_ms'], 1) for x in steps]}; launches per step "
+            f"{per_step}; losses {losses}; equal to phase 4's bit for bit: "
+            f"{same} ({smi})")
+        bad = []
+        if per_step != want:
+            bad.append(f"launches per step {per_step}, want {want}")
+        if base is not None and not same:
+            bad.append(f"losses {losses} and grad norms {norms} differ from "
+                       f"phase 4's {base['losses']} {base['grad_norms']}")
+        if not skip_main and ahead_s <= 0:
+            # under --skip-main the 2-layer cut's steps take milliseconds
+            bad.append("the first item arrived after the last step ended")
+        if final["visible"] != "0":
+            bad.append(f"CUDA_VISIBLE_DEVICES {final['visible']!r}")
+        if bad:
+            raise SmokeFailure(f"{STREAM_PATH}: (a) " + "; ".join(bad))
+
+        # ... then a stream held by its backpressure window, closed after
+        # two items: its producer runs out and the slot goes to the next
+        # num_gpus=1 task
+        window = CONFIG.generator_backpressure_window
+        progress = os.path.join(tempfile.mkdtemp(
+            prefix="rtpt_stream_", dir=rt._global_node.session_dir),
+            "progress")
+        gen = rt.remote(num_gpus=1)(me.paced_stream).options(
+            num_returns="streaming").remote(STREAM_CLOSE_ITEMS, progress)
+        got = [rt.get(next(gen), timeout=300) for _ in range(2)]
+        time.sleep(1.0)   # an unpaced producer would finish here
+        held = Path(progress).read_text()
+        t_close = time.time()
+        del gen
+        gc.collect()
+        probe = rt.get(rt.remote(num_gpus=1)(me.slot_probe).remote(progress),
+                       timeout=300)
+        slot_s = probe["t_start"] - t_close
+        out["close"] = {"items": got, "held_at": held, "window": window,
+                        "slot_free_s": slot_s, "probe": probe}
+        log(f"{STREAM_PATH}: (a) a stream of {STREAM_CLOSE_ITEMS} held at "
+            f"{held} items (window {window}) after 2 were read; closed, its "
+            f"producer ran out ({probe['progress']!r}) and the next "
+            f"num_gpus=1 task started on slots {probe['slots']} "
+            f"{slot_s:.3f} s after the close (limit {CLOSE_SLOT_S:.0f} s)")
+        if (got != [0.0, float(sum(range(1024)))] or not held.isdigit()
+                or int(held) > window + 2 or probe["progress"] != "done"
+                or probe["slots"] != {"GPU": [0]} or slot_s > CLOSE_SLOT_S):
+            raise SmokeFailure(f"{STREAM_PATH}: (a) the closed stream: "
+                               f"{out['close']}")
+
+        # (b) lineage: a lost result of the card computed again
+        cfg, batch = phase_cut(skip_main)
+        marks = tempfile.mkdtemp(prefix="rtpt_lineage_",
+                                 dir=rt._global_node.session_dir)
+        node = rt._global_node
+        t0, t_first = time.perf_counter(), time.time()
+        tokens = rt.remote(me.lineage_tokens).remote(
+            batch, cfg.max_seq_len, cfg.vocab_size, 1, marks)
+        result = rt.remote(num_gpus=1)(me.lineage_logits).remote(
+            tokens, skip_main, marks)
+        first = rt.get(result, timeout=600)
+        first_get_s = time.perf_counter() - t0
+        for ref in (tokens, result):
+            node.store.free([ref.id])
+            node.gcs.drop_location(ref.id)
+        lost = not any(node.store.contains(r.id) for r in (tokens, result))
+        t0, t_rebuild = time.perf_counter(), time.time()
+        again = rt.get(result, timeout=600)
+        rebuild_s = time.perf_counter() - t0
+        # each execution: its task, worker pid and start, in seconds after
+        # the get that ran it began
+        runs, starts = {}, []
+        for f in sorted(os.listdir(marks), key=lambda f: int(f.split(".")[2])):
+            kind, pid, t_ns = f.split(".")
+            runs[kind] = runs.get(kind, 0) + 1
+            t = int(t_ns) / 1e9
+            starts.append((kind, int(pid), round(
+                t - (t_rebuild if t >= t_rebuild else t_first), 3)))
+        by_path[LINEAGE_PATH] = again["launches"]
+        logits = again["logits"]
+        want = {"flash_fwd": again["n_layers"], "flash_bwd_dq": 0,
+                "flash_bwd_dkv": 0}
+        equal = torch.equal(first["logits"], logits)
+        out["lineage"] = {"first_get_s": first_get_s, "rebuild_s": rebuild_s,
+                          "runs": runs, "starts": starts, "lost": lost,
+                          "bit_equal": equal,
+                          "launches": [first["launches"], again["launches"]],
+                          "shape": list(logits.shape),
+                          "pids": [first["pid"], again["pid"]]}
+        log(f"{LINEAGE_PATH}: (b) [{batch}, {cfg.max_seq_len}] tokens from a "
+            f"CPU task, their last position's f32 logits "
+            f"{list(logits.shape)} ({logits.numel() * 4 / 1e6:.2f} MB) from "
+            f"a num_gpus=1 task ({again['device']}, CUDA_VISIBLE_DEVICES "
+            f"{again['visible']!r}); both objects freed from the store and "
+            f"the directory (gone: {lost}); rebuilt in {rebuild_s:.3f} s "
+            f"beside the first get's {first_get_s:.3f} s; executions "
+            f"{runs}, (task, pid, s after its get began) {starts}; launches "
+            f"{first['launches']} then {again['launches']}; bit-equal: "
+            f"{equal}")
+        bad = []
+        if not lost:
+            bad.append("the objects were still in the store")
+        if runs != {"tokens": 2, "logits": 2}:
+            bad.append(f"executions {runs}, want each task twice")
+        if first["launches"] != want or again["launches"] != want:
+            bad.append(f"launches {first['launches']}, {again['launches']},"
+                       f" want {want}")
+        if not equal or logits.dtype != torch.float32 or list(
+                logits.shape) != [batch, cfg.vocab_size]:
+            bad.append(f"rebuilt logits {logits.dtype} "
+                       f"{list(logits.shape)}, bit-equal {equal}")
+        if not torch.isfinite(logits).all():
+            bad.append("non-finite logits")
+        if again["visible"] != "0":
+            bad.append(f"CUDA_VISIBLE_DEVICES {again['visible']!r}")
+        if bad:
+            raise SmokeFailure(f"{LINEAGE_PATH}: (b) " + "; ".join(bad))
+    except exceptions.RayTpuError as exc:
+        raise SmokeFailure(f"phase 19: {type(exc).__name__}: {exc}") from exc
+    finally:
+        rt.shutdown()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def run(args) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3740,6 +4063,15 @@ def run(args) -> int:
                             args.skip_main)
     log(f"phase 18: {cluster_job['phase_s']:.1f} s")
 
+    # phase 19: a streaming num_gpus=1 task trains phase 4's path (a 2-layer
+    # cut under --skip-main); a closed stream frees the slot; a lost result
+    # of the card is rebuilt from lineage
+    gc.collect()
+    torch.cuda.empty_cache()
+    task_kinds = task_kinds_phase(torch, smi, by_path, main.get("gpt2_medium"),
+                                  args.skip_main)
+    log(f"phase 19: {task_kinds['phase_s']:.1f} s")
+
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
                 "replaces": REPLACES[name],
                 "launches": by_path["gpt2_medium"][name],
@@ -3760,7 +4092,8 @@ def run(args) -> int:
                        "main": main, "rl": rl_out, "runtime": runtime,
                        "comm": comm, "phase16_s": phase16_s,
                        "serve": serving, "phase17_s": phase17_s,
-                       "cluster_job": cluster_job},
+                       "cluster_job": cluster_job,
+                       "task_kinds": task_kinds},
                       f, indent=1)
     log(json.dumps({"kernels": kernels}))
     log(smi)
@@ -3780,7 +4113,7 @@ def main() -> int:
     ap.add_argument("--skip-main", action="store_true",
                     help="skip the train paths, phases 4-6, 8-11, 14, "
                     "16(b)-(c) and 17(b)-(f) and the steps of phases 13 and "
-                    "15; phase 18's task trains a 2-layer cut (debugging)")
+                    "15; phases 18 and 19 run a 2-layer cut (debugging)")
     args = ap.parse_args()
     try:
         return run(args)

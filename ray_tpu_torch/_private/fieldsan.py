@@ -755,8 +755,13 @@ def guarded(cls: type) -> type:
         installed = True
     if installed:
         orig_init = cls.__init__
+        attrs = tuple(fields)
 
         def __init__(self, *a, _fs_orig=orig_init, **k):
+            # records are keyed by id(): a new object can take a dead
+            # one's id, and must not pair with the dead one's accesses
+            for attr in attrs:
+                _last.pop((id(self), attr), None)
             with construction(self):
                 _fs_orig(self, *a, **k)
 

@@ -139,6 +139,10 @@ class _TaskRecord:
     queued_at: float = field(default_factory=time.monotonic)
     # exclusive GPU slot indices held while running (whole-card demands)
     accel_ids: Optional[List[int]] = None
+    # the slots a worker was started (or is alive) for on this task's
+    # behalf: taken again while all are free, so the task waits for that
+    # worker rather than take lower slots another task has just freed
+    want_gpus: Optional[List[int]] = None
     # True once a worker handed this lease back (it sat behind a
     # blocking task): never pipe it again — one bounce max per task,
     # so rescue storms terminate and normal scheduling takes over
@@ -2426,6 +2430,23 @@ class NodeService:
         else:
             peer = self._peer(target)
             if peer is None:
+                # the node list still names a node whose connection is
+                # gone (its death not yet noticed): route among the others
+                # where the strategy allows another node, as it will once
+                # the death is noticed; a hard affinity to it, or a
+                # placement group's bundle on it, fails here, and so does
+                # a target already excluded (nothing else was left)
+                excl = set(exclude or ()) | {target}
+                pinned = (isinstance(strategy,
+                                     sched.PlacementGroupSchedulingStrategy)
+                          or (isinstance(strategy,
+                                         sched.NodeAffinitySchedulingStrategy)
+                              and not strategy.soft))
+                if (not pinned and target not in (exclude or ())
+                        and any(c[0] not in excl
+                                for c in self._candidates())):
+                    self._route_task(spec, excl)
+                    return
                 self._fail_returns(spec, exceptions.WorkerCrashedError(
                     "target node died before dispatch"))
                 return
@@ -2719,12 +2740,13 @@ class NodeService:
                     # starved task up to the startup-concurrency cap —
                     # one spawn per dispatch pass would serialize a
                     # burst's ramp-up behind single worker cold-starts
-                    # (one for GPU slots: the next task of the bucket
-                    # gets other slots, or none free)
-                    n_spawn = 1 if gpus else min(
-                        len(bucket), CONFIG.maximum_startup_concurrency)
-                    for _ in range(n_spawn):
-                        self._maybe_spawn_worker(rec, gpus)
+                    if gpus:
+                        self._spawn_for_slot_sets(bucket, gpus)
+                    else:
+                        for _ in range(min(
+                                len(bucket),
+                                CONFIG.maximum_startup_concurrency)):
+                            self._maybe_spawn_worker(rec)
                     # a different-env shape behind this one may still
                     # have an idle worker; move to the next bucket
                     break
@@ -2919,9 +2941,13 @@ class NodeService:
                     else:
                         sched.add(self.resources_available, demand)
                     return False
-                self._gpu_free.sort()
-                rec.accel_ids = self._gpu_free[:n_gpu]
-                del self._gpu_free[:n_gpu]
+                want = rec.want_gpus
+                if not (want and len(want) == n_gpu
+                        and all(g in self._gpu_free for g in want)):
+                    want = sorted(self._gpu_free)[:n_gpu]
+                for g in want:
+                    self._gpu_free.remove(g)
+                rec.accel_ids = list(want)
         rec.charge = dict(demand)
         return True
 
@@ -3108,10 +3134,25 @@ class NodeService:
         return found
 
     def _maybe_spawn_worker(self, rec: Optional["_TaskRecord"] = None,
-                            gpus: Optional[List[int]] = None) -> None:
+                            gpus: Optional[List[int]] = None) -> bool:
+        """Start a worker for ``rec``'s env (and ``gpus``' slots) where the
+        pool allows; True where one is starting, or is bound to those slots
+        and can take the task."""
         self._reap_startup_failures()
         env_key = (_worker_key(self._rec_env_key(rec), gpus)
                    if rec is not None else "")
+        if gpus and any(w.env_key == env_key
+                        and (w.state == "STARTING"
+                             or (w.state in ("IDLE", "BUSY")
+                                 and not w.blocked_gets))
+                        for w in self._workers.values()):
+            # slots are exclusive, so one worker bound to them (starting,
+            # or ending its last task) takes the task next; a second would
+            # import torch and make a CUDA context of its own on the same
+            # card, and the idle pool hands tasks out oldest first. One
+            # with a thread parked in a get() is not leased, so it does
+            # not count
+            return True
         # workers blocked in a get() don't count against the pool cap:
         # deep nested submission (recursion) parks a worker per level,
         # and capping on them deadlocks the leaves that would unblock
@@ -3131,13 +3172,29 @@ class NodeService:
             # evict one idle mismatched worker to make room (reference:
             # WorkerPool idle eviction, ``worker_pool.h:152``)
             if not self._evict_idle_worker(exclude_env=env_key):
-                return
+                return False
         if self._num_starting >= CONFIG.maximum_startup_concurrency:
-            return
+            return False
         if rec is not None:
             self._spawn_worker(env_key, self._rec_runtime_env(rec), gpus)
         else:
             self._spawn_worker()
+        return True
+
+    def _spawn_for_slot_sets(self, bucket: deque, gpus: List[int]) -> None:
+        """Start a worker for each slot set the tasks of a starved GPU
+        bucket take, the head task's own ``gpus`` first and then the lowest
+        free slots, and have each task keep its set while a worker is bound
+        to it. A worker serves only its own slots: without this the second
+        task waits for the first one's worker, and where the first task
+        ends before another worker is up, takes its freed lower slots and
+        runs after it."""
+        n = len(gpus)
+        with self._res_lock:
+            free = sorted(g for g in self._gpu_free if g not in gpus)
+        sets = [gpus] + [free[i:i + n] for i in range(0, len(free) - n + 1, n)]
+        for rec, ids in zip((r for r in bucket if not r.cancelled), sets):
+            rec.want_gpus = ids if self._maybe_spawn_worker(rec, ids) else None
 
     def _evict_idle_worker(self, exclude_env: str) -> bool:
         """Kill one idle worker whose env differs from ``exclude_env``."""

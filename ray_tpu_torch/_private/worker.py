@@ -528,6 +528,11 @@ class WorkerRuntime:
         args = [self._load_one(slot, deps) for slot in spec.args]
         kwargs = {k: self._load_one(slot, deps)
                   for k, slot in spec.kwargs.items()}
+        # refs nested in the arguments became this worker's borrows as they
+        # were unpickled: send them before the body runs, so the node knows
+        # what the running task holds (the OOM autopsy names it) without
+        # waiting for the background flush
+        self.client.flush_refs()
         return args, kwargs
 
     def _load_one(self, slot, deps):

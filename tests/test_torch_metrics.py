@@ -1,11 +1,12 @@
 """ray_tpu_torch.util.metrics, the user-metric surface over the port's
 telemetry: the cases of tests/test_telemetry.py that go through
 ``util.metrics`` (the exposition's golden file, kind inference, digest
-summaries, retired gauges, the trace exemplar and the cluster scrape, the
-last without serve and the dashboard, which the port does not have yet),
-user metrics recorded in workers and read back by the driver, and the
-exposition held equal to ray_tpu's on the same snapshots."""
+summaries, retired gauges, the trace exemplar and the cluster scrape with
+serve and the dashboard), user metrics recorded in workers and read back
+by the driver, and the exposition held equal to ray_tpu's on the same
+snapshots."""
 
+import json
 import os
 import time
 import urllib.request
@@ -145,12 +146,15 @@ def test_queue_wait_exemplar_links_trace(rtpu_init):
 
 
 def test_cluster_scrape_covers_subsystems():
-    """On a 2-node cluster running tasks, puts and one collective, a
-    single export_prometheus() scrape holds the scheduler's, the object
-    store's and the collectives' metrics (the copy leaves out serve and
-    the dashboard, which the port does not have yet)."""
+    """On a 2-node cluster running tasks, puts, one collective and one
+    serve request, a single export_prometheus() scrape holds the
+    scheduler's, the object store's, the collectives' and serve's metrics,
+    and the dashboard's /api/metrics returns the same table as JSON (and
+    /metrics the Prometheus text)."""
+    from ray_tpu_torch import serve
     from ray_tpu_torch.cluster_utils import Cluster
     from ray_tpu_torch.comm import collective as col
+    from ray_tpu_torch.dashboard import DashboardServer
 
     cluster = Cluster(initialize_head=True, head_node_args={"num_cpus": 2})
     ray_tpu_torch.init(address=cluster)
@@ -176,18 +180,52 @@ def test_cluster_scrape_covers_subsystems():
         out = ray_tpu_torch.get([m.do_allreduce.remote([1.0, 2.0])
                                  for m in members])
         assert np.allclose(out[0], [2.0, 4.0])
-        wanted = ("rtpu_scheduler_", "rtpu_object_store_",
-                  "rtpu_collective_")
-        text = ""
-        deadline = time.monotonic() + 15
-        while time.monotonic() < deadline:
-            text = rmetrics.export_prometheus()
-            if all(w in text for w in wanted):
-                break
-            time.sleep(0.25)
-        missing = [w for w in wanted if w not in text]
-        assert not missing, f"scrape missing subsystems {missing}:\n{text}"
-        assert "# TYPE rtpu_scheduler_tasks_submitted_total counter" in text
+
+        @serve.deployment
+        def double(x):
+            return x * 2
+
+        try:
+            handle = serve.run(double.bind())
+            assert handle.remote(21).result(timeout=10) == 42
+
+            wanted = ("rtpu_scheduler_", "rtpu_object_store_",
+                      "rtpu_collective_", "rtpu_serve_")
+            text = ""
+            deadline = time.monotonic() + 15
+            while time.monotonic() < deadline:
+                text = rmetrics.export_prometheus()
+                if all(w in text for w in wanted):
+                    break
+                time.sleep(0.25)
+            missing = [w for w in wanted if w not in text]
+            assert not missing, (f"scrape missing subsystems {missing}:\n"
+                                 f"{text}")
+            assert ("# TYPE rtpu_scheduler_tasks_submitted_total counter"
+                    in text)
+
+            server = DashboardServer(cluster.head, host="127.0.0.1")
+            server.start()
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{server.port}/api/metrics",
+                        timeout=10) as resp:
+                    data = json.loads(resp.read())
+                names = {m["name"] for m in data["metrics"]}
+                for w in wanted:
+                    assert any(n.startswith(w) for n in names), (w, names)
+                sub = [m for m in data["metrics"]
+                       if m["name"] == "rtpu_scheduler_tasks_submitted_total"]
+                assert sum(m["value"] for m in sub) >= 4
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{server.port}/metrics",
+                        timeout=10) as resp:
+                    prom = resp.read().decode()
+                assert "rtpu_scheduler_tasks_submitted_total" in prom
+            finally:
+                server.stop()
+        finally:
+            serve.shutdown()
     finally:
         ray_tpu_torch.shutdown()
         cluster.shutdown()

@@ -2,6 +2,7 @@
 and its entry points run on the card unless asked for the CPU."""
 
 import ast
+import functools
 import os
 import re
 import subprocess
@@ -356,3 +357,37 @@ def test_flash_params_mirror_the_c_struct():
         names.append(re.split(r"[\s*]+", first)[-1])
         names += rest
     assert names == [name for name, _ in _ext.FlashParams._fields_]
+
+
+# the JAX package's runtime test files (none of them imports jax): each
+# has a copy tests/test_torch_<stem>.py on the port's runtime
+JAX_RUNTIME_TESTS = (
+    "core_basic", "core_actors", "refcount", "util", "transport",
+    "lease_pipelining", "object_plane", "native_arena", "generators", "dag",
+    "runtime_env", "memory_monitor", "memory_introspection", "debugging",
+    "history", "gcs_persistence", "log_streaming", "user_journey",
+    "telemetry", "tracing_events")
+
+
+def _test_names(path):
+    return {node.name for node in ast.walk(ast.parse(path.read_text()))
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef))
+            and node.name.startswith("test_")}
+
+
+@functools.lru_cache(maxsize=None)
+def _port_test_names():
+    return frozenset().union(*(_test_names(p) for p in
+                               (ROOT / "tests").glob("test_torch_*.py")))
+
+
+@pytest.mark.parametrize("stem", JAX_RUNTIME_TESTS)
+def test_jax_runtime_tests_have_port_copies(stem):
+    """Every test of the JAX package's runtime test file has a test of the
+    same name on the port: in its copy, or (not copied twice) in another
+    tests/test_torch_*.py; and the original imports no jax."""
+    tests = ROOT / "tests"
+    original = tests / f"test_{stem}.py"
+    assert "jax" not in original.read_text()
+    assert (tests / f"test_torch_{stem}.py").exists()
+    assert sorted(_test_names(original) - _port_test_names()) == []

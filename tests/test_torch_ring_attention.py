@@ -234,3 +234,20 @@ def test_fresh_process_passes_are_bit_equal(tmp_path):
         for name in ("out", "dq", "dk", "dv"):
             np.testing.assert_array_equal(res[f"{name}1"], res[f"{name}2"],
                                           err_msg=f"{name}, process {i}")
+
+
+def test_launch_after_a_group_left_its_store_behind(tmp_path):
+    """The cause of the flake above: both of its groups ran in one
+    directory, and where a rank of the first exited before its FileStore
+    was destroyed, the second read the first's addresses from the file it
+    left and hung on a dead port until the deadline ("Connection refused",
+    240 s). A group that leaves its store file behind must not touch the
+    next group in the same directory."""
+    for leave, want in ((True, -1.0), (False, 3.0)):
+        ranks = torch_dist_worker.launch(torch_dist_worker.store_left_behind,
+                                         2, tmp_path, str(tmp_path), leave,
+                                         timeout=60)
+        assert [float(r["sum"][0]) for r in ranks] == [want, want]
+        if leave:
+            assert any(p.name.startswith("store_")
+                       for p in tmp_path.iterdir())

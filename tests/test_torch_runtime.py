@@ -348,3 +348,49 @@ def test_one_program_through_both_runtimes():
     assert want["wait"] == (True, ["early"], True)
     assert want["errors"]["task"][0] == "TaskError"
     assert want["errors"]["timeout"] == "GetTimeoutError"
+
+
+def test_task_routed_away_from_a_node_whose_connection_is_gone():
+    """A node the directory still lists alive, but whose connection is gone
+    (its death not yet noticed), gets no task: a soft affinity to it runs
+    the task elsewhere, a hard one or a placement group's bundle on it
+    fails it (ray_tpu fails all three with "target node died before
+    dispatch")."""
+    from ray_tpu_torch import exceptions
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.util import PlacementGroupSchedulingStrategy
+    from ray_tpu_torch.util import placement_group
+    from ray_tpu_torch.util.scheduling_strategies import (
+        NodeAffinitySchedulingStrategy)
+
+    cluster = Cluster(initialize_head=True, head_node_args={"num_cpus": 2})
+    ray_tpu_torch.init(address=cluster)
+    try:
+        far = cluster.add_node(num_cpus=2, resources={"far": 1})
+        pg = placement_group([{"CPU": 1, "far": 1}])
+        pg.ready(timeout=30)
+        head = ray_tpu_torch._global_node
+        far_id = far.node_id
+        peer = head._peer
+        head._peer = lambda nid: None if nid == far_id else peer(nid)
+        where = ray_tpu_torch.remote(T.slot_home)
+        soft = NodeAffinitySchedulingStrategy(node_id=far_id, soft=True)
+        home = ray_tpu_torch.get(where.options(
+            scheduling_strategy=soft).remote(ray_tpu_torch.__name__),
+            timeout=60)[2]
+        assert home == head.node_id.hex()
+        hard = NodeAffinitySchedulingStrategy(node_id=far_id, soft=False)
+        with pytest.raises(exceptions.WorkerCrashedError,
+                           match="died before dispatch"):
+            ray_tpu_torch.get(where.options(scheduling_strategy=hard).remote(
+                ray_tpu_torch.__name__), timeout=60)
+        bundle = PlacementGroupSchedulingStrategy(
+            placement_group=pg, placement_group_bundle_index=0)
+        with pytest.raises(exceptions.WorkerCrashedError,
+                           match="died before dispatch"):
+            ray_tpu_torch.get(where.options(
+                scheduling_strategy=bundle).remote(ray_tpu_torch.__name__),
+                timeout=60)
+    finally:
+        ray_tpu_torch.shutdown()
+        cluster.shutdown()

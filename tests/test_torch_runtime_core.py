@@ -302,3 +302,39 @@ def test_large_result_leaves_no_resource_tracker_warning(tmp_path):
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "resource_tracker" not in proc.stderr, proc.stderr
     assert "leaked" not in proc.stderr, proc.stderr
+
+
+def test_nested_arg_borrows_are_sent_before_the_body_runs():
+    """A ref nested in a task's argument is a borrow of the worker from the
+    moment it is unpickled; the worker sends it before the body runs, so
+    the node knows what the running task holds (ray_tpu waits for the
+    client's background flush)."""
+    big = rt.put(np.zeros(300_000, dtype=np.uint8))
+
+    @rt.remote
+    def pending_edges(boxed):
+        from ray_tpu_torch._private import context
+        return len(context.current_client._edge_buf)
+
+    assert rt.get(pending_edges.remote([big]), timeout=60) == 0
+
+
+def test_fieldsan_new_object_starts_without_a_dead_ones_accesses():
+    """fieldsan keys its access records by id(), and a new object can take
+    a dead one's id: its construction must drop the records of that id (a
+    standalone MetricsHistory written on the main thread was once reported
+    racing a shut-down node's tick whose history had held the same id).
+    Constructing again in place stands in for the new object at the id."""
+    import threading
+
+    from ray_tpu_torch._private import fieldsan, history
+
+    before = len(fieldsan.violations())
+    level = history._Level(1.0, 4)
+    writer = threading.Thread(
+        target=lambda: setattr(level, "last_ts", 1.0))
+    writer.start()
+    writer.join()
+    level.__init__(1.0, 4)
+    level.last_ts = 2.0
+    assert len(fieldsan.violations()) == before

@@ -380,3 +380,93 @@ def test_killed_pending_actor_never_starts(runtime):
     # the slot serves the next holder
     third = holder.remote()
     assert rt.get(third.ids.remote(NAME), timeout=60) == ({"GPU": [0]}, "0")
+
+
+@pytest.mark.parametrize("runtime", [{"num_cpus": 2, "num_gpus": 1}],
+                         indirect=True)
+def test_tasks_of_one_slot_share_one_worker(runtime):
+    """One live worker serves a slot: GPU tasks between bursts of slot-less
+    tasks all run in it. A second worker bound to the same slot would
+    import torch and make a CUDA context of its own on the card, and the
+    idle pool, which hands tasks out oldest first, would alternate them."""
+    probe = rt.remote(T.cuda_probe).options(num_gpus=1)
+    pids = []
+    for _ in range(4):
+        pids.append(rt.get(probe.remote(), timeout=60)[2])
+        rt.get([rt.remote(T.sleep_then).remote(0.2, i) for i in range(3)],
+               timeout=60)
+    assert len(set(pids)) == 1, pids
+    node = rt._global_node
+    bound = [w for w in node._workers.values()
+             if w.env_key.endswith("|gpu:0") and w.state != "DEAD"]
+    assert len(bound) == 1, [(w.env_key, w.state) for w in bound]
+
+
+@pytest.mark.parametrize("runtime", [{"num_cpus": 4, "num_gpus": 2}],
+                         indirect=True)
+def test_task_waits_for_the_worker_started_for_its_slots(runtime, tmp_path):
+    """Two concurrent one-slot tasks get disjoint slots even where the
+    second one's worker starts after the first task has ended: the second
+    task keeps the slot its worker was started for, and does not take the
+    first one's freed slot and run after it."""
+    # the worker for slot 1 takes 3 s to start: its interpreter sleeps in
+    # a sitecustomize module before the worker's own code runs
+    (tmp_path / "sitecustomize.py").write_text(
+        "import time\ntime.sleep(3.0)\n")
+    node = rt._global_node
+    spawn = node._spawn_worker
+
+    def slow_second(env_key="", worker_runtime_env=None, gpus=None):
+        if gpus == [1]:
+            worker_runtime_env = {"env_vars": {"PYTHONPATH": str(tmp_path)}}
+        return spawn(env_key, worker_runtime_env, gpus)
+
+    node._spawn_worker = slow_second
+
+    @rt.remote(num_gpus=1)
+    def which_card():
+        import time
+        time.sleep(0.5)
+        return rt.get_runtime_context().get_accelerator_ids()["GPU"]
+
+    a, b = rt.get([which_card.remote(), which_card.remote()], timeout=60)
+    assert sorted(a + b) == [0, 1]
+
+
+@pytest.mark.parametrize("runtime", [{"num_cpus": 3, "num_gpus": 1}],
+                         indirect=True)
+def test_slot_task_runs_beside_a_worker_parked_in_get(runtime, tmp_path):
+    """A slot's worker with a thread left parked in a get() by an earlier
+    task is not leased; the slot's next task gets a worker of its own
+    instead of waiting for that get() to return."""
+    release = tmp_path / "release"
+
+    @rt.remote
+    def wait_for_file(path):
+        import os
+        import time
+        while not os.path.exists(path):
+            time.sleep(0.05)
+        return "released"
+
+    @rt.remote(num_gpus=1)
+    def park(refs):
+        import os
+        import threading
+        import time
+        threading.Thread(target=rt.get, args=(refs[0],),
+                         daemon=True).start()
+        time.sleep(0.5)         # the thread is parked in get() by now
+        return os.getpid()
+
+    @rt.remote(num_gpus=1)
+    def pid():
+        import os
+        return os.getpid()
+
+    parked = rt.get(park.remote([wait_for_file.remote(str(release))]),
+                    timeout=60)
+    try:
+        assert rt.get(pid.remote(), timeout=30) != parked
+    finally:
+        release.touch()

@@ -2,10 +2,11 @@
 
 `launch` starts one spawned process per rank, joined by a `FileStore` in
 the test's own directory (no TCP port, so tests in parallel cannot
-collide), and gives each group a deadline. Each rank program runs with the
-default process group set up and returns a dict of numpy arrays, which
-`launch` hands back in rank order. This module imports torch, numpy and the
-port only: the children never import JAX.
+collide; a new file for every group), and gives each group a deadline.
+Each rank program runs with the default process group set up and returns
+a dict of numpy arrays, which `launch` hands back in rank order. This
+module imports torch, numpy and the port only: the children never import
+JAX.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import multiprocessing
 import os
 import time
 import traceback
+import uuid
 from typing import Callable, Dict, List
 
 import weakref
@@ -38,7 +40,12 @@ def launch(target: Callable, world: int, workdir, *args,
     workdir = str(workdir)
     t0 = time.monotonic()
     ctx = multiprocessing.get_context("spawn")
-    store = os.path.join(workdir, f"store_{target.__name__}_{world}")
+    # a new store file for every group: a FileStore removes its file only
+    # once every rank's store object is destroyed, and a rank that exits
+    # before that leaves the file with its group's addresses in it; a later
+    # group in the same directory read them and connected to a dead port
+    store = os.path.join(workdir, f"store_{target.__name__}_{world}_"
+                                  f"{uuid.uuid4().hex}")
     procs = [ctx.Process(target=_rank_main,
                          args=(target, rank, world, store, workdir, args))
              for rank in range(world)]
@@ -177,6 +184,20 @@ def ring_rank(rank, world, inputs_path, causal):
     res["loopback_full_out"] = full
     res["cuda_raises"] = np.array(cuda_raises)
     return res
+
+
+def store_left_behind(rank, world, workdir, leave):
+    """With `leave`, join the group and leave at once without destroying it
+    (os._exit): the group's FileStore file stays behind with its
+    addresses. Without it, an all-reduce of rank + 1."""
+    if leave:
+        np.savez(_out_path(workdir, store_left_behind, rank),
+                 sum=np.array([-1.0]))
+        dist.barrier()
+        os._exit(0)
+    x = torch.tensor([float(rank + 1)])
+    dist.all_reduce(x)
+    return {"sum": x.numpy()}
 
 
 def loopback_twice(index, inputs_path, sp, causal):
