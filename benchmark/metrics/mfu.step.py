@@ -1,0 +1,8 @@
+"""The share of the card's dense bf16 peak that the train step reaches
+called directly, in percent."""
+
+from benchmark.harness.roofline import mfu
+
+
+def read(run):
+    return mfu(run)
