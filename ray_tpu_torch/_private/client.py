@@ -502,36 +502,38 @@ class CoreClient:
 
     # ------------------------------------------------------------- objects
     def put(self, value: Any) -> ObjectRef:
-        from .object_ref import begin_ref_capture, end_ref_capture
-        oid = ObjectID.for_put(self.worker_id)
-        # the ref exists (and is registered) BEFORE any contained-ref
-        # pin references it as holder — see _pin_contained below
-        ref = ObjectRef(oid)
-        self._note_provenance((oid,))
-        begin_ref_capture()
-        try:
+        from ..util import tracing
+        with tracing.start_span("runtime::" + "put"):
+            from .object_ref import begin_ref_capture, end_ref_capture
+            oid = ObjectID.for_put(self.worker_id)
+            # the ref exists (and is registered) BEFORE any contained-ref
+            # pin references it as holder — see _pin_contained below
+            ref = ObjectRef(oid)
+            self._note_provenance((oid,))
+            begin_ref_capture()
+            try:
+                if self.wire_data_plane:
+                    flat = self._serialize_flat(value)
+                else:
+                    meta, sealed = self._store_value(oid, value)
+            finally:
+                contained = end_ref_capture()
+            self._pin_contained(oid, contained)
             if self.wire_data_plane:
-                flat = self._serialize_flat(value)
+                self._wire_put(oid, *flat)
+                return ref
+            if sealed:
+                pass    # adopted + published in-process (head driver)
+            elif meta.shm_name is not None or meta.arena_ref is not None:
+                # Large object: block until the node store adopts it — a
+                # returned ref IS sealed, matching the reference
+                # (``core_worker.cc:1141``). A one-way seal was measured at
+                # <3% on the put bench and let a returned ref race the
+                # store's visibility/accounting; not worth the drift.
+                self._sync_put(meta)
             else:
-                meta, sealed = self._store_value(oid, value)
-        finally:
-            contained = end_ref_capture()
-        self._pin_contained(oid, contained)
-        if self.wire_data_plane:
-            self._wire_put(oid, *flat)
+                self._send(P.PUT_OBJECT, meta)
             return ref
-        if sealed:
-            pass    # adopted + published in-process (head driver)
-        elif meta.shm_name is not None or meta.arena_ref is not None:
-            # Large object: block until the node store adopts it — a
-            # returned ref IS sealed, matching the reference
-            # (``core_worker.cc:1141``). A one-way seal was measured at
-            # <3% on the put bench and let a returned ref race the
-            # store's visibility/accounting; not worth the drift.
-            self._sync_put(meta)
-        else:
-            self._send(P.PUT_OBJECT, meta)
-        return ref
 
     def _pin_contained(self, oid: ObjectID, contained: list) -> None:
         """Refs pickled INSIDE a stored value would lose their last
@@ -692,15 +694,17 @@ class CoreClient:
 
     def get(self, refs: Sequence[ObjectRef],
             timeout: Optional[float] = None) -> List[Any]:
-        ids = [r.id for r in refs]
-        fut = self._request(self._get_op,
-                            lambda rid: (rid, ids, timeout))
-        metas = self._blocking_result(fut)
-        out = []
-        for ref, m in zip(refs, metas):
-            out.append(self._load_meta(ref, m, timeout))
-        self.flush_refs()   # register refs unpickled from the values
-        return out
+        from ..util import tracing
+        with tracing.start_span("runtime::" + "get"):
+            ids = [r.id for r in refs]
+            fut = self._request(self._get_op,
+                                lambda rid: (rid, ids, timeout))
+            metas = self._blocking_result(fut)
+            out = []
+            for ref, m in zip(refs, metas):
+                out.append(self._load_meta(ref, m, timeout))
+            self.flush_refs()   # register refs unpickled from the values
+            return out
 
     def _load_meta(self, ref: ObjectRef, meta: ObjectMeta,
                    timeout: Optional[float] = None) -> Any:
@@ -851,37 +855,37 @@ class CoreClient:
                     max_retries: int, scheduling_strategy=None,
                     retry_exceptions: bool = False,
                     runtime_env: Optional[dict] = None) -> List[ObjectRef]:
-        task_id = TaskID.for_job(self.job_id)
-        packed, pkw = self.pack_args(args, kwargs)
-        streaming = num_returns == -1
-        return_ids = ([] if streaming
-                      else [ObjectID.for_task_return(task_id, i)
-                            for i in range(num_returns)])
-        spec = P.TaskSpec(
-            task_id=task_id, job_id=self.job_id, name=name,
-            function_id=function_id, args=packed, kwargs=pkw,
-            num_returns=num_returns, return_ids=return_ids,
-            resources=resources,
-            # no lineage reconstruction of partially-consumed streams
-            # (the reference restricts retries of generators similarly)
-            max_retries=0 if streaming else max_retries,
-            retry_exceptions=retry_exceptions,
-            scheduling_strategy=scheduling_strategy,
-            owner_id=self.worker_id.binary(),
-            namespace=self._active_namespace(),
-            runtime_env=runtime_env,
-            trace_context=self._trace_context(),
-            request_ctx=_ctx.request_ctx.get())
-        self._note_provenance(return_ids)
-        self._send_submission(P.SUBMIT_TASK, spec)
-        if streaming:
-            return ObjectRefGenerator(task_id)
-        return [ObjectRef(oid) for oid in return_ids]
-
-    @staticmethod
-    def _trace_context() -> Optional[dict]:
         from ..util import tracing
-        return tracing.propagation_context()
+        # taken before the span opens: the task's own span is the
+        # caller's child, a sibling of this one
+        trace_context = tracing.propagation_context()
+        with tracing.start_span("runtime::" + "submit"):
+            task_id = TaskID.for_job(self.job_id)
+            packed, pkw = self.pack_args(args, kwargs)
+            streaming = num_returns == -1
+            return_ids = ([] if streaming
+                          else [ObjectID.for_task_return(task_id, i)
+                                for i in range(num_returns)])
+            spec = P.TaskSpec(
+                task_id=task_id, job_id=self.job_id, name=name,
+                function_id=function_id, args=packed, kwargs=pkw,
+                num_returns=num_returns, return_ids=return_ids,
+                resources=resources,
+                # no lineage reconstruction of partially-consumed streams
+                # (the reference restricts retries of generators similarly)
+                max_retries=0 if streaming else max_retries,
+                retry_exceptions=retry_exceptions,
+                scheduling_strategy=scheduling_strategy,
+                owner_id=self.worker_id.binary(),
+                namespace=self._active_namespace(),
+                runtime_env=runtime_env,
+                trace_context=trace_context,
+                request_ctx=_ctx.request_ctx.get())
+            self._note_provenance(return_ids)
+            self._send_submission(P.SUBMIT_TASK, spec)
+            if streaming:
+                return ObjectRefGenerator(task_id)
+            return [ObjectRef(oid) for oid in return_ids]
 
     def send_profile_event(self, kind: str, payload) -> None:
         self._send(P.PROFILE_EVENT, (kind, payload))
@@ -894,27 +898,32 @@ class CoreClient:
     def submit_actor_task(self, actor_id: ActorID, method_name: str,
                           args, kwargs, num_returns: int, seq_no: int,
                           name: str = "") -> List[ObjectRef]:
-        task_id = TaskID.for_job(self.job_id)
-        packed, pkw = self.pack_args(args, kwargs)
-        streaming = num_returns == -1
-        return_ids = ([] if streaming
-                      else [ObjectID.for_task_return(task_id, i)
-                            for i in range(num_returns)])
-        spec = P.TaskSpec(
-            task_id=task_id, job_id=self.job_id,
-            name=name or method_name, function_id=b"",
-            args=packed, kwargs=pkw, num_returns=num_returns,
-            return_ids=return_ids, resources={},
-            actor_id=actor_id, method_name=method_name, seq_no=seq_no,
-            owner_id=self.worker_id.binary(),
-            namespace=self._active_namespace(),
-            trace_context=self._trace_context(),
-            request_ctx=_ctx.request_ctx.get())
-        self._note_provenance(return_ids)
-        self._send_submission(P.SUBMIT_ACTOR_TASK, spec)
-        if streaming:
-            return ObjectRefGenerator(task_id)
-        return [ObjectRef(oid) for oid in return_ids]
+        from ..util import tracing
+        # taken before the span opens: the task's own span is the
+        # caller's child, a sibling of this one
+        trace_context = tracing.propagation_context()
+        with tracing.start_span("runtime::" + "submit"):
+            task_id = TaskID.for_job(self.job_id)
+            packed, pkw = self.pack_args(args, kwargs)
+            streaming = num_returns == -1
+            return_ids = ([] if streaming
+                          else [ObjectID.for_task_return(task_id, i)
+                                for i in range(num_returns)])
+            spec = P.TaskSpec(
+                task_id=task_id, job_id=self.job_id,
+                name=name or method_name, function_id=b"",
+                args=packed, kwargs=pkw, num_returns=num_returns,
+                return_ids=return_ids, resources={},
+                actor_id=actor_id, method_name=method_name, seq_no=seq_no,
+                owner_id=self.worker_id.binary(),
+                namespace=self._active_namespace(),
+                trace_context=trace_context,
+                request_ctx=_ctx.request_ctx.get())
+            self._note_provenance(return_ids)
+            self._send_submission(P.SUBMIT_ACTOR_TASK, spec)
+            if streaming:
+                return ObjectRefGenerator(task_id)
+            return [ObjectRef(oid) for oid in return_ids]
 
     def kill_actor(self, actor_id: ActorID, no_restart: bool) -> None:
         self._send(P.KILL_ACTOR, (actor_id, no_restart))

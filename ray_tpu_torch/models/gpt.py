@@ -55,6 +55,7 @@ from ..parallel.sharding import (DEFAULT_RULES, ShardingRules, _axes,
                                  with_logical_constraint)
 from ..parallel.tensor_parallel import (copy_to_tp, gather_from_tp,
                                         reduce_from_tp)
+from ..util import tracing
 from .moe import MoEMesh, moe_ffn
 
 
@@ -316,6 +317,13 @@ class GPT(nn.Module):
                  mesh: Optional[Mesh] = None,
                  rules: Optional[ShardingRules] = None):
         super().__init__()
+        with tracing.start_span("model::" + "init"):
+            self._build(config, device, seed, mesh, rules)
+
+    def _build(self, config: GPTConfig, device, seed: int,
+               mesh: Optional[Mesh], rules: Optional[ShardingRules]) -> None:
+        """The constructor's work: the mesh's transports, the weights'
+        draw and, on a process mesh, the shards."""
         c = config
         self.mesh = mesh
         self.rules = rules if rules is not None else DEFAULT_RULES

@@ -43,6 +43,7 @@ import torch
 from torch.distributed.tensor import DTensor
 
 from ..parallel.mesh import AXIS_PP, AXIS_SP, Mesh
+from ..util import tracing
 from .gpt import GPT, resolve_device
 
 Params = Dict[str, torch.Tensor]
@@ -275,11 +276,14 @@ def make_train_step(model: GPT, optimizer: Optimizer, device="cuda",
         for p in state.params.values():
             p.grad = None
         if pipelined:
-            _, metrics = model.pipeline_loss(batch, backward=True)
+            with tracing.start_span("model::" + "pipeline"):
+                _, metrics = model.pipeline_loss(batch, backward=True)
         else:
-            loss, metrics = model.loss(batch)
-            loss.backward()
-        with torch.no_grad():
+            with tracing.start_span("model::" + "forward"):
+                loss, metrics = model.loss(batch)
+            with tracing.start_span("model::" + "backward"):
+                loss.backward()
+        with torch.no_grad(), tracing.start_span("model::" + "update"):
             # a pipeline stage leaves no gradient on the parameters outside
             # its blocks that it does not use (the head's, off the last)
             grads = [_local(p.grad) if p.grad is not None

@@ -12,6 +12,9 @@ the README's registries with ``ray_tpu`` (the metric names and event
 labels are the same); the names of ``ray_tpu``'s registry that the port
 does not define are listed in the README's port section on the line
 that starts with ``_PORT_ABSENT_PREFIX``, and only those may be absent.
+The span-name prefixes only the port opens are on the port section's
+line that starts with ``_PORT_SPANS_PREFIX`` (the shared registry may
+hold only prefixes that ``ray_tpu`` opens).
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ _README_SPAN_RE = re.compile(r"`([a-z][a-z0-9_]*::)")
 _REGISTRY_HEADING = "### Cluster event & span registry"
 _PORT_HEADING = "## PyTorch/CUDA port"
 _PORT_ABSENT_PREFIX = "Registry names the port does not define:"
+_PORT_SPANS_PREFIX = "Span prefixes only the port opens:"
 
 # the package under analysis
 _PKG = "ray_tpu_torch"
@@ -311,22 +315,36 @@ def readme_event_registry(readme_path: str) -> Tuple[Set[str], Set[str]]:
             set(_README_SPAN_RE.findall(body)))
 
 
-def port_absent_names(readme_path: str) -> Set[str]:
-    """Metric names of the README's registry that the port does not
-    define: the backticked names on the port section's line that starts
-    with ``_PORT_ABSENT_PREFIX``."""
+def _port_line(readme_path: str, prefix: str) -> str:
+    """The README port section's line that starts with `prefix` ("" when
+    there is none)."""
     try:
         with open(readme_path) as f:
             text = f.read()
     except OSError:
-        return set()
+        return ""
     start = text.find(_PORT_HEADING)
     if start < 0:
-        return set()
+        return ""
     for line in text[start:].splitlines():
-        if line.startswith(_PORT_ABSENT_PREFIX):
-            return set(_README_NAME_RE.findall(line))
-    return set()
+        if line.startswith(prefix):
+            return line
+    return ""
+
+
+def port_absent_names(readme_path: str) -> Set[str]:
+    """Metric names of the README's registry that the port does not
+    define: the backticked names on the port section's line that starts
+    with ``_PORT_ABSENT_PREFIX``."""
+    return set(_README_NAME_RE.findall(
+        _port_line(readme_path, _PORT_ABSENT_PREFIX)))
+
+
+def port_span_prefixes(readme_path: str) -> Set[str]:
+    """Span-name prefixes only the port opens: the backticked prefixes on
+    the port section's line that starts with ``_PORT_SPANS_PREFIX``."""
+    return set(_README_SPAN_RE.findall(
+        _port_line(readme_path, _PORT_SPANS_PREFIX)))
 
 
 def check(repo_root: str = None) -> List[str]:
@@ -493,6 +511,7 @@ def check_events(root: str, files=None) -> List[str]:
     spans = collect_span_prefixes(pkg, files)
     doc_labels, doc_spans = readme_event_registry(
         os.path.join(root, "README.md"))
+    doc_spans |= port_span_prefixes(os.path.join(root, "README.md"))
     problems: List[str] = []
     if not labels:
         problems.append("no EventLogger emit sites found under ray_tpu_torch/ "

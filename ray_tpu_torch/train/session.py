@@ -14,6 +14,7 @@ import os
 import threading
 from typing import Any, Dict, Optional
 
+from ..util import tracing
 from .checkpoint import Checkpoint
 
 _session_local = threading.local()
@@ -100,18 +101,19 @@ def report(metrics: Dict[str, Any],
     into before rank 0's save returned, so rank 0's path holds them all.
     """
     ctx = get_context()
-    ctx.iteration += 1
-    payload = {
-        "rank": ctx.world_rank,
-        "iteration": ctx.iteration,
-        "metrics": dict(metrics),
-        "checkpoint_path": None,
-    }
-    if checkpoint is not None and ctx.world_rank == 0:
-        checkpoint.set_metrics(metrics)
-        payload["checkpoint_path"] = checkpoint.path
-        ctx.latest_checkpoint = checkpoint
-    ctx.results_queue.put(payload)
+    with tracing.start_span("train::" + "report"):
+        ctx.iteration += 1
+        payload = {
+            "rank": ctx.world_rank,
+            "iteration": ctx.iteration,
+            "metrics": dict(metrics),
+            "checkpoint_path": None,
+        }
+        if checkpoint is not None and ctx.world_rank == 0:
+            checkpoint.set_metrics(metrics)
+            payload["checkpoint_path"] = checkpoint.path
+            ctx.latest_checkpoint = checkpoint
+        ctx.results_queue.put(payload)
 
 
 def get_checkpoint() -> Optional[Checkpoint]:

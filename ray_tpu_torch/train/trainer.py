@@ -36,6 +36,7 @@ from typing import Any, Callable, Dict, List, Optional
 from .. import cluster_resources, get, get_runtime_context, kill, wait
 from ..api import remote
 from ..exceptions import ActorDiedError, TaskError, WorkerCrashedError
+from ..util import tracing
 from ..util.placement_group import placement_group, remove_placement_group
 from ..util.scheduling_strategies import PlacementGroupSchedulingStrategy
 from .checkpoint import Checkpoint
@@ -74,13 +75,17 @@ class _TrainWorker:
                            experiment_name=self.experiment_name,
                            dataset_shards=dataset_shards,
                            local_rank=local_rank, attempt=attempt)
-        _rendezvous(self.rank, self.world_size, store_path)
+        with tracing.start_span("train::" + "rendezvous",
+                                attributes={"rank": self.rank}):
+            _rendezvous(self.rank, self.world_size, store_path)
         _set_session(ctx)
         try:
-            if _loop_takes_config(loop_fn):
-                loop_fn(config)
-            else:
-                loop_fn()
+            with tracing.start_span("train::" + "loop",
+                                    attributes={"rank": self.rank}):
+                if _loop_takes_config(loop_fn):
+                    loop_fn(config)
+                else:
+                    loop_fn()
         finally:
             _set_session(None)
             import torch.distributed as dist
@@ -156,6 +161,10 @@ class TorchTrainer:
 
     # ------------------------------------------------------------------ fit
     def fit(self) -> Result:
+        with tracing.start_span("train::" + "fit"):
+            return self._fit()
+
+    def _fit(self) -> Result:
         from ..util.queue import Queue
 
         sc = self._scaling
@@ -182,17 +191,22 @@ class TorchTrainer:
 
         while True:
             queue = Queue()
-            gang = self._spawn_gang(name, storage)
+            gang, shard_sets = {}, {}
             # a new rendezvous file for every attempt
             store_path = os.path.join(
                 exp_dir, f".rendezvous_{attempts}_{uuid.uuid4().hex[:8]}")
-            # fresh streaming shards per attempt: the pipeline re-executes
-            # from the start on an elastic restart
-            shard_sets = {
-                ds_name: ds.streaming_split(self._scaling.num_workers)
-                for ds_name, ds in self._datasets.items()}
             try:
-                nodes = get([w.node_id.remote() for w in gang["workers"]])
+                # the gang is up once every worker has answered
+                with tracing.start_span("train::" + "gang",
+                                        attributes={"attempt": attempts}):
+                    gang = self._spawn_gang(name, storage)
+                    nodes = get([w.node_id.remote()
+                                 for w in gang["workers"]])
+                # fresh streaming shards per attempt: the pipeline
+                # re-executes from the start on an elastic restart
+                shard_sets = {
+                    ds_name: ds.streaming_split(self._scaling.num_workers)
+                    for ds_name, ds in self._datasets.items()}
                 refs = [w.run.remote(self._loop, self._loop_config, queue,
                                      latest_ckpt.path if latest_ckpt
                                      else None,

@@ -10,12 +10,20 @@ remote execution, and export to the control plane where
 
 Enable with ``init(_system_config={"tracing_enabled": True})`` (or
 ``RTPU_TRACING_ENABLED=1``). Disabled, every hook is a no-op.
+
+Where torch's profiler is recording on the calling thread, a span also
+opens a ``torch.profiler.record_function`` of its name for its length,
+with tracing on or off, so the span lands on the profiler's own clock and
+the profiler links the kernels launched under it. The check finds torch
+in ``sys.modules`` and never imports it: a process that has not loaded
+torch pays nothing for it.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import sys
 import threading
 import time
 from typing import Any, Dict, List, Optional
@@ -89,37 +97,90 @@ def _new_span(name: str, parent: Optional[Dict[str, str]],
     }
 
 
-@contextlib.contextmanager
+def _profiling() -> bool:
+    """Whether torch's profiler records on this thread; False where torch
+    is not loaded (or is still being imported by another thread)."""
+    torch = sys.modules.get("torch")
+    if torch is None:
+        return False
+    try:
+        return torch.autograd._profiler_enabled()
+    except AttributeError:
+        return False
+
+
+def _profiler_range(name: str):
+    """The entered ``record_function`` of `name`, or None where torch's
+    profiler does not record on this thread."""
+    if not _profiling():
+        return None
+    import torch
+    rf = torch.profiler.record_function(name)
+    rf.__enter__()
+    return rf
+
+
+_NOOP = contextlib.nullcontext()
+
+
+class _Span:
+    """`start_span`'s context: the buffered span (when traced) and the
+    profiler's range of the same name (when torch's profiler records)."""
+
+    __slots__ = ("name", "attributes", "traced", "span", "rf")
+
+    def __init__(self, name: str, attributes: Optional[Dict[str, Any]],
+                 traced: bool):
+        self.name, self.attributes, self.traced = name, attributes, traced
+        self.span = self.rf = None
+
+    def __enter__(self) -> Optional[dict]:
+        self.rf = _profiler_range(self.name)
+        if self.traced:
+            self.span = _new_span(self.name, get_current_context(),
+                                  self.attributes)
+            stack = getattr(_local, "stack", None)
+            if stack is None:
+                stack = _local.stack = []
+            stack.append(self.span)
+        return self.span
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        span = self.span
+        if span is not None:
+            if exc_type is not None:
+                span["status"] = f"ERROR:{exc_type.__name__}"
+            span["end_time"] = time.time()
+            _local.stack.pop()
+            _record(span)
+        if self.rf is not None:
+            self.rf.__exit__(exc_type, exc, tb)
+        return False
+
+
 def start_span(name: str, attributes: Optional[Dict[str, Any]] = None,
                force: bool = False):
     """Open a span as a child of the current context. Yields the span
-    dict (mutable: add attributes mid-flight). ``force`` traces even
-    when local config has tracing off (used when the caller's spec says
-    the submitting process is tracing)."""
-    if not (enabled() or force):
-        yield None
-        return
-    span = _new_span(name, get_current_context(), attributes)
-    stack = getattr(_local, "stack", None)
-    if stack is None:
-        stack = _local.stack = []
-    stack.append(span)
-    try:
-        yield span
-    except BaseException as e:
-        span["status"] = f"ERROR:{type(e).__name__}"
-        raise
-    finally:
-        span["end_time"] = time.time()
-        stack.pop()
-        _record(span)
+    dict (mutable: add attributes mid-flight), or None when this process
+    does not trace. ``force`` traces even when local config has tracing
+    off (used when the caller's spec says the submitting process is
+    tracing). Untraced, the span still opens the profiler's range where
+    torch's profiler records."""
+    traced = force or enabled()
+    if not traced and not _profiling():
+        return _NOOP
+    return _Span(name, attributes, traced)
 
 
 def begin_span(name: str, parent: Optional[Dict[str, str]],
                attributes: Optional[Dict[str, Any]] = None) -> dict:
     """Stackless span for contexts where thread-local nesting is wrong
     (asyncio actors interleave many calls on one loop thread)."""
-    return _new_span(name, parent, attributes)
+    span = _new_span(name, parent, attributes)
+    rf = _profiler_range(name)
+    if rf is not None:
+        span["_profiler_range"] = rf
+    return span
 
 
 def end_span(span: Optional[dict], error: Optional[str] = None) -> None:
@@ -128,6 +189,9 @@ def end_span(span: Optional[dict], error: Optional[str] = None) -> None:
     span["end_time"] = time.time()
     if error:
         span["status"] = f"ERROR:{error}"
+    rf = span.pop("_profiler_range", None)
+    if rf is not None:
+        rf.__exit__(None, None, None)
     _record(span)
 
 
