@@ -7,8 +7,10 @@ GPT-2 family (learned positions, GELU MLP, LayerNorm) and the Llama family
 Numerics follow the JAX model with explicit casts (no autocast): params are
 f32 and cast to the activation dtype at use, the embedding gather happens
 in that dtype, the residual stream stays in it, norms compute in f32 and
-cast back, logits come back f32. Every per-layer parameter keeps the JAX
-layout of one slice of the stacked tree (``wq [d, h, hd]``,
+cast back, logits come back f32 (the head's products run on a working copy
+padded to a multiple of 64 rows, `HEAD_ROW_ALIGN`, and are cut back to the
+vocabulary; the parameters keep their shapes). Every per-layer parameter
+keeps the JAX layout of one slice of the stacked tree (``wq [d, h, hd]``,
 ``wo [h, hd, d]``, ...), so a JAX checkpoint loads by unstacking only
 (`ray_tpu_torch.models.convert.params_from_jax`).
 
@@ -302,6 +304,43 @@ class Block(nn.Module):
         return block_fn(self, x, positions)
 
 
+# cuBLAS's Hopper kernels need each leading dimension 16-byte aligned, and
+# the head's row count is one in all three of its products: `GPT._head`
+# pads the rows to a multiple of this (unpadded, GPT-2's 50,257 rows run on
+# sm75 CUTLASS kernels; the GPT-2 presets' 50,304 are such a multiple)
+HEAD_ROW_ALIGN = 64
+
+
+def _cast_to_width(t: torch.Tensor, cols: int, dtype) -> torch.Tensor:
+    """`t` [..., n] cast to `dtype` with its last dimension cut or
+    zero-padded to `cols`, in one pass into a new tensor. A transposed 2-D
+    table (a [V, d] table read as [d, V]) keeps that layout."""
+    keep = min(t.shape[-1], cols)
+    if t.dim() == 2 and t.stride(0) == 1 and t.stride(1) != 1:
+        out = t.new_empty((cols, t.shape[0]), dtype=dtype).t()
+    else:
+        out = t.new_empty((*t.shape[:-1], cols), dtype=dtype)
+    out[..., :keep].copy_(t[..., :keep])
+    out[..., keep:].zero_()
+    return out
+
+
+class _CastToWidth(torch.autograd.Function):
+    """`_cast_to_width` under autograd: its backward is the same cast back
+    to the input's dtype and width, so the gradient of a cut tensor is
+    padded (and that of a padded one cut) in one pass, with no second
+    buffer of the padded size."""
+
+    @staticmethod
+    def forward(ctx, t, cols, dtype):
+        ctx.back = (t.shape[-1], t.dtype)
+        return _cast_to_width(t, cols, dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _cast_to_width(grad, *ctx.back), None, None
+
+
 class GPT(nn.Module):
     """`forward` (= `forward_with_aux`) -> (logits, aux), `apply` ->
     logits, `loss`.
@@ -317,8 +356,10 @@ class GPT(nn.Module):
                  mesh: Optional[Mesh] = None,
                  rules: Optional[ShardingRules] = None):
         super().__init__()
-        with tracing.start_span("model::" + "init"):
+        with tracing.start_span("model::" + "init") as span:
             self._build(config, device, seed, mesh, rules)
+            if span is not None:
+                span["attributes"]["head_pad_rows"] = self.head_pad_rows
 
     def _build(self, config: GPTConfig, device, seed: int,
                mesh: Optional[Mesh], rules: Optional[ShardingRules]) -> None:
@@ -376,6 +417,11 @@ class GPT(nn.Module):
             self.bias_f = draw.const("bias_f", 0.0, d)
         if not c.tie_embeddings:
             self.lm_head = draw.normal("lm_head", 0.02, d, c.vocab_size)
+        # the zero rows `_head` adds to this rank's head rows (its vocab
+        # slice under tp) in its working copy; 0 where they are aligned
+        rows = (self.tok_embed.shape[0] if c.tie_embeddings
+                else self.lm_head.shape[1])
+        self.head_pad_rows = -rows % HEAD_ROW_ALIGN
         if self.sums_over_ranks:
             self._shard()
 
@@ -636,12 +682,18 @@ class GPT(nn.Module):
 
     def _head(self, x):
         """The final norm and the head: f32 logits (under tp this rank's
-        vocab columns), a new tensor (FSDP2 warns of a view as an output)."""
+        vocab columns), a new tensor (FSDP2 warns of a view as an output).
+        The head's working copy in the activation dtype takes
+        `head_pad_rows` zero rows, so the three products run at a multiple
+        of `HEAD_ROW_ALIGN` rows; the logits and the head's gradient are
+        cut back to its V rows in the casts that make them."""
         c = self.config
         x = self._tp_in(self._norm(x, self.norm_f,
                                    getattr(self, "bias_f", None)))
         head = (self.tok_embed.t() if c.tie_embeddings else self.lm_head)
-        return self._proj(x, head.to(c.dtype)).to(torch.float32, copy=True)
+        v = head.shape[1]
+        w = _CastToWidth.apply(head, v + self.head_pad_rows, c.dtype)
+        return _CastToWidth.apply(self._proj(x, w), v, torch.float32)
 
     def _positions(self, tokens, positions):
         """Positions default to the rank's global ones (its sequence shard's

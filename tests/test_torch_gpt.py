@@ -22,6 +22,7 @@ from ray_tpu_torch.parallel import AXIS_ORDER, Mesh, MeshSpec
 torch.set_num_threads(2)
 
 F32_ATOL = 1e-4   # f32 on both sides; sums in another order
+GRAD_ATOL = 1e-6  # f32 gradients, whose largest entries are ~0.05
 # bf16 activations: both round the residual stream, projections and norms
 # to bf16, at different places inside fused ops; logits are O(1), whose
 # bf16 spacing is 2**-7, so allow a few of those.
@@ -35,21 +36,31 @@ GPT2_FAMILY = dict(vocab_size=512, n_layers=2, d_model=128, n_heads=4,
 
 # the mixture-of-experts block (tests/test_models_parallel.py:32)
 MOE = dict(n_experts=4, moe_top_k=2)
-FAMILIES = ["llama_tiny", "gpt2_family", "llama_tiny_moe"]
+# a family at an unaligned vocabulary: 500 = 7 x 64 + 52 head rows, which
+# the port's head pads to 512 in its working copy
+V500 = "_v500"
+FAMILIES = ["llama_tiny", "gpt2_family", "llama_tiny_moe",
+            "gpt2_family" + V500]
 
 
 def _configs(family, f32, **kw):
     jdt = jnp.float32 if f32 else jnp.bfloat16
     tdt = torch.float32 if f32 else torch.bfloat16
+    vocab = {}
+    if family.endswith(V500):
+        family, vocab = family[:-len(V500)], dict(vocab_size=500)
     if family == "llama_tiny_moe":
         family, kw = "llama_tiny", {**MOE, **kw}
     if family == "llama_tiny":
-        return (jgpt.llama_tiny(dtype=jdt, attention_impl="pallas_interpret",
-                                **kw),
-                tgpt.llama_tiny(dtype=tdt, **kw))
+        return (dataclasses.replace(jgpt.llama_tiny(
+                    dtype=jdt, attention_impl="pallas_interpret", **kw),
+                    **vocab),
+                dataclasses.replace(tgpt.llama_tiny(dtype=tdt, **kw),
+                                    **vocab))
+    kw = {**GPT2_FAMILY, **vocab, **kw}
     return (jgpt.GPTConfig(dtype=jdt, attention_impl="pallas_interpret",
-                           **GPT2_FAMILY, **kw),
-            tgpt.GPTConfig(dtype=tdt, **GPT2_FAMILY, **kw))
+                           **kw),
+            tgpt.GPTConfig(dtype=tdt, **kw))
 
 
 def _pair(family, f32=True, **kw):
@@ -70,17 +81,18 @@ def _tokens(b=2, s=64, vocab=512, seed=1):
 @pytest.mark.parametrize("family", FAMILIES)
 def test_logits_match_jax_f32(family):
     jm, params, tm = _pair(family)
-    toks = _tokens()
+    toks = _tokens(vocab=tm.config.vocab_size)
     j = np.asarray(jm.apply(params, jnp.asarray(toks)))
     t = tm.apply(torch.from_numpy(toks).long())
-    assert t.dtype == torch.float32 and t.shape == (2, 64, 512)
+    assert t.dtype == torch.float32
+    assert t.shape == (2, 64, tm.config.vocab_size)
     np.testing.assert_allclose(t.detach().numpy(), j, atol=F32_ATOL)
 
 
 @pytest.mark.parametrize("family", FAMILIES)
 def test_logits_match_jax_bf16(family):
     jm, params, tm = _pair(family, f32=False)
-    toks = _tokens()
+    toks = _tokens(vocab=tm.config.vocab_size)
     j = np.asarray(jm.apply(params, jnp.asarray(toks)))
     t = tm.apply(torch.from_numpy(toks).long())
     assert t.dtype == torch.float32   # logits come back f32 (gpt.py:493)
@@ -92,7 +104,7 @@ def test_loss_matches_jax(family):
     """Next-token NLL + z-loss 1e-4, last position masked, loss_mask applied,
     plus 0.01 x the MoE load-balance loss with experts (gpt.py:559-594)."""
     jm, params, tm = _pair(family)
-    toks = _tokens()
+    toks = _tokens(vocab=tm.config.vocab_size)
     mask = (np.random.default_rng(2).random(toks.shape) > 0.3
             ).astype(np.float32)
     for batch in ({"tokens": toks}, {"tokens": toks, "loss_mask": mask}):
@@ -112,6 +124,66 @@ def test_loss_matches_jax(family):
     tm0.load_state_dict(tm.state_dict())
     batch = {"tokens": torch.from_numpy(toks).long()}
     assert float(tm.loss(batch)[0].detach()) > float(tm0.loss(batch)[0].detach())
+
+
+@pytest.mark.parametrize("family", ["gpt2_family" + V500,
+                                    "llama_tiny" + V500])
+def test_grads_match_jax(family):
+    """The port's backward against `jax.grad` of JAX's loss, every leaf, at
+    the unaligned vocabulary: the tied table (its lookup's gradient and the
+    padded head's together) and the untied lm_head."""
+    jm, params, tm = _pair(family)
+    toks = _tokens(vocab=tm.config.vocab_size)
+    assert tm.head_pad_rows == 12
+    grads = jax.grad(lambda p: jm.loss(p, {"tokens": jnp.asarray(toks)})[0])(
+        params)
+    want = params_from_jax(jax.tree_util.tree_map(np.asarray, grads),
+                           tm.config)
+    loss, _ = tm.loss({"tokens": torch.from_numpy(toks).long()})
+    loss.backward()
+    got = {n: p.grad for n, p in tm.named_parameters()}
+    assert set(got) == set(want)
+    assert ("lm_head" in got) == (not tm.config.tie_embeddings)
+    for name, g in got.items():
+        assert g.shape == want[name].shape, name
+        torch.testing.assert_close(g, want[name], atol=GRAD_ATOL, rtol=1e-4,
+                                   msg=name)
+
+
+@pytest.mark.parametrize("family", ["gpt2_family", "llama_tiny"])
+@pytest.mark.parametrize("vocab, pad", [(500, 12), (512, 0)])
+def test_head_pads_only_its_working_copy(family, vocab, pad):
+    """`head_pad_rows` is what makes the head's rows a multiple of 64, and
+    the pad lives in the step's working copy alone: every parameter keeps
+    its shape, the logits come back [B, S, V] in f32, and the logits and
+    gradients equal those of the unpadded head (f32)."""
+    _, tc = _configs(family, f32=True, remat=False)
+    tc = dataclasses.replace(tc, vocab_size=vocab)
+    tm = tgpt.GPT(tc, device="cpu")
+    assert tm.head_pad_rows == pad
+    d = tc.d_model
+    shapes = {"tok_embed": (vocab, d), "lm_head": (d, vocab)}
+    own = dict(tm.named_parameters())
+    for name, shape in shapes.items():
+        if name in own:
+            assert own[name].shape == shape, name
+    toks = torch.from_numpy(_tokens(s=32, vocab=vocab)).long()
+    runs = []
+    for pad_rows in (pad, 0):
+        tm.head_pad_rows = pad_rows
+        tm.zero_grad(set_to_none=True)
+        logits = tm.apply(toks)
+        tm.loss({"tokens": toks})[0].backward()
+        runs.append((logits.detach(),
+                     {n: p.grad for n, p in tm.named_parameters()}))
+    (logits, grads), (logits0, grads0) = runs
+    assert logits.dtype == torch.float32 and logits.shape == (2, 32, vocab)
+    assert logits.is_contiguous()
+    torch.testing.assert_close(logits, logits0, atol=1e-6, rtol=0)
+    for name, g in grads.items():
+        assert g.shape == own[name].shape, name
+        torch.testing.assert_close(g, grads0[name], atol=1e-7, rtol=1e-5,
+                                   msg=name)
 
 
 @pytest.mark.parametrize("f32", [True, False], ids=["f32", "bf16"])
@@ -150,7 +222,7 @@ def test_causality():
 @pytest.mark.parametrize("family", FAMILIES)
 def test_remat_policies_give_equal_grads(family):
     _, tc = _configs(family, f32=True)
-    toks = torch.from_numpy(_tokens(s=48)).long()
+    toks = torch.from_numpy(_tokens(s=48, vocab=tc.vocab_size)).long()
     grads = {}
     for name, kw in {"off": dict(remat=False),
                      "full": dict(remat=True, remat_policy="full"),

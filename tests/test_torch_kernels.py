@@ -1,4 +1,6 @@
-"""ray_tpu_torch's CUDA kernels on the card, against their plain versions.
+"""ray_tpu_torch's CUDA kernels on the card, against their plain versions,
+and the model's head at GPT-2's unaligned vocabulary (the products cuBLAS
+picks for it).
 
 Every test here needs an NVIDIA GPU (marker `cuda`) and skips elsewhere.
 The file imports neither JAX nor ray_tpu, so it also runs on a GPU machine
@@ -307,3 +309,61 @@ def test_loopback_pipeline_equals_no_mesh_on_card(cuda_device):
                         "flash_bwd_dkv": L * M}
     assert _rel(got["loss"], want["loss"]) <= PIPE_LOSS_RTOL
     assert _rel(got["grad_norm"], want["grad_norm"]) <= PIPE_GRAD_NORM_RTOL
+
+
+def test_unaligned_head_leaves_cublas_sm75_kernels(cuda_device):
+    """`GPT._head` at GPT-2's 50,257 rows (4,096 positions, d 1,024): its
+    working copy takes 47 zero rows, so no product of its forward and
+    backward runs cuBLAS's sm75 CUTLASS fallback; the logits and the
+    table's gradient match an unpadded f32 computation within bf16
+    tolerance, and the forward and backward hold no more memory than the
+    unpadded head's under plain autograd (a cast and a product)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch.models import gpt
+
+    V, d, n = 50257, 1024, 4096
+    model = gpt.GPT(gpt.GPTConfig(vocab_size=V, n_layers=1, d_model=d,
+                                  n_heads=16, remat=False),
+                    device=cuda_device)
+    assert model.head_pad_rows == 47
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn(2, n // 2, d, generator=g, device=cuda_device,
+                    dtype=torch.bfloat16, requires_grad=True)
+    dy = torch.randn(2, n // 2, V, generator=g, device=cuda_device) * 1e-2
+
+    def unpadded(x):
+        h = model._norm(x, model.norm_f, model.bias_f)
+        return (h @ model.tok_embed.t().to(h.dtype)).to(torch.float32)
+
+    def run(head):
+        model.zero_grad(set_to_none=True)
+        x.grad = None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        logits = head(x)
+        logits.backward(dy)
+        torch.cuda.synchronize()
+        return logits.detach(), torch.cuda.max_memory_allocated() - base
+
+    run(unpadded)
+    run(model._head)                         # warm both
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        logits, peak = run(model._head)
+    kernels = [e.key for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert kernels, "the profiler recorded no kernel"
+    assert not [k for k in kernels if "cutlass_75" in k], kernels
+    grad = model.tok_embed.grad.clone()
+    _, peak0 = run(unpadded)
+    assert logits.dtype == torch.float32 and logits.shape == (2, n // 2, V)
+    # a second bf16 [n, 50304] buffer would add 412 MB
+    assert peak <= peak0 + n * (V + 47) * 2 // 8, (peak, peak0)
+
+    with torch.no_grad():
+        h = model._norm(x, model.norm_f, model.bias_f).float().reshape(n, d)
+        ref_logits = h @ model.tok_embed.t()
+        ref_grad = dy.reshape(n, V).t() @ h
+    _close(logits.reshape(n, V), ref_logits)
+    _close(grad, ref_grad)

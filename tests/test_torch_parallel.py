@@ -523,3 +523,36 @@ def test_gpt2_family_tp2_forward_matches_jax(tmp_path):
             want = want.numpy()
             err = np.linalg.norm(res[f"grad/{name}"] - want)
             assert err <= GRAD_NORM_RTOL * np.linalg.norm(want), name
+
+
+def test_gpt2_family_tp2_unaligned_vocab_matches_tp1(tmp_path):
+    """At vocab 500 each tp rank's head holds 250 rows, which its working
+    copy pads to 256: each rank's logits are its 250 columns of the
+    unsharded model's (the port's, and JAX's), and the loss and the
+    gathered gradients equal theirs."""
+    cfg_kw = dict(GPT2_FAMILY, vocab_size=500)
+    ranks, logits, loss, grads = _gpt2_forward(tmp_path, dict(dp=1, tp=2),
+                                               cfg_kw)
+    _, tc = _jax_setup(cfg_kw, family="gpt2")
+    tm = tgpt.GPT(tc, device="cpu")
+    tm.load_state_dict({n: torch.from_numpy(t) for n, t in
+                        np.load(tmp_path / "params.npz").items()})
+    toks = torch.from_numpy(np.load(tmp_path / "tokens.npz")["tokens"]).long()
+    with torch.no_grad():
+        tp1_logits = tm.apply(toks).numpy()
+        tp1_loss = float(tm.loss({"tokens": toks})[0])
+    assert tm.head_pad_rows == 12
+    np.testing.assert_allclose(tp1_logits, logits, atol=1e-4)
+    for res in ranks:
+        assert int(res["head_pad_rows"]) == 6
+        cols = slice(_coord(res, "tp") * 250, (_coord(res, "tp") + 1) * 250)
+        assert res["logits"].shape == (2, 64, 250)
+        np.testing.assert_allclose(res["logits"], tp1_logits[:, :, cols],
+                                   atol=1e-4)
+        np.testing.assert_allclose(float(res["loss"]), tp1_loss, rtol=1e-5)
+        np.testing.assert_allclose(float(res["global_loss"]), loss,
+                                   rtol=1e-5)
+        for name, want in grads.items():
+            want = want.numpy()
+            err = np.linalg.norm(res[f"grad/{name}"] - want)
+            assert err <= GRAD_NORM_RTOL * np.linalg.norm(want), name

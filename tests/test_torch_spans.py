@@ -190,6 +190,20 @@ def test_train_step_spans_in_order_and_bit_equal():
             assert torch.equal(m[k], m0[k]), k
 
 
+@pytest.mark.parametrize("tracing_on", [True], indirect=True,
+                         ids=["tracing_on"])
+@pytest.mark.parametrize("vocab, pad", [(500, 12), (512, 0)])
+def test_init_span_carries_head_pad_rows(tracing_on, vocab, pad):
+    """The model's build span holds the rows its head pads, the model's
+    own count."""
+    import dataclasses
+
+    model = GPT(dataclasses.replace(llama_tiny(), vocab_size=vocab),
+                device="cpu")
+    (span,) = [s for s in tracing.drain() if s["name"] == "model::init"]
+    assert span["attributes"]["head_pad_rows"] == model.head_pad_rows == pad
+
+
 # --- the trainer and the runtime ---------------------------------------------
 
 def _loop(config):

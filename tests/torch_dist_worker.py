@@ -481,7 +481,8 @@ def forward_rank(rank, world, spec_kw, config_kw, params_path, tokens_path,
     out = {f"grad/{n}": g.numpy() for n, g in grads.items()}
     out.update(logits=logits.numpy(), loss=np.array(float(loss)),
                global_loss=np.array(float(metrics["loss"])),
-               coords=_coords(mesh))
+               coords=_coords(mesh),
+               head_pad_rows=np.array(model.head_pad_rows))
     return out
 
 
