@@ -3,6 +3,10 @@ positions, multi-head attention, a tanh-GELU MLP, a tied head."""
 
 from ..reference.common import Dims
 
+# the CPU tests' size
+TINY = dict(n_embd=64, n_head=2, n_layer=2, n_positions=128, vocab_size=320)
+TINY_ASSUMED = dict(seq_len=64, train_batch=4, token_ids_below=300)
+
 
 def dims(c: dict) -> Dims:
     a = c["assumed"]

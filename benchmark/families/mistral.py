@@ -3,6 +3,12 @@ half-split RoPE, grouped-query attention, a SwiGLU MLP, an untied head."""
 
 from ..reference.common import Dims
 
+# the CPU tests' size
+TINY = dict(hidden_size=64, intermediate_size=160, num_attention_heads=4,
+            num_key_value_heads=2, num_hidden_layers=2, vocab_size=256,
+            sliding_window=64)
+TINY_ASSUMED = dict(seq_len=64, train_batch=4, token_ids_below=256)
+
 
 def dims(c: dict) -> Dims:
     a = c["assumed"]

@@ -34,7 +34,9 @@ def non_embedding_params(d: Dims) -> int:
 
 def train_flops_per_token(d: Dims, seq: int) -> float:
     """6 N (non-embedding) + 12 L d S + 6 d V: forward and backward, the
-    head counted, recomputation not."""
+    head counted, recomputation not; every layer attention and a dense MLP
+    (a family with other layers counts its own, which `roofline.mfu`
+    reads in place of this)."""
     return (6.0 * non_embedding_params(d) + 12.0 * d.n_layers * d.d_model * seq
             + 6.0 * d.d_model * d.vocab)
 

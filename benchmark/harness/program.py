@@ -8,6 +8,7 @@ from __future__ import annotations
 
 from typing import Dict, Optional
 
+from ..families import port_kwargs
 from ..reference.common import Dims
 from . import weights
 
@@ -16,6 +17,9 @@ PORT_NORM_EPS = {"rmsnorm": 1e-6, "layernorm": 1e-5}
 
 
 def gpt_config(d: Dims):
+    """The port's GPTConfig of `d`, with the family's `port_kwargs` added
+    to it. A family may not replace a setting taken here from the
+    configuration, and a key GPTConfig lacks fails there."""
     import torch
     from ray_tpu_torch.models.gpt import GPTConfig
 
@@ -23,7 +27,7 @@ def gpt_config(d: Dims):
         raise ValueError(f"the port's {d.norm} takes eps "
                          f"{PORT_NORM_EPS[d.norm]}, the configuration "
                          f"states {d.norm_eps}")
-    return GPTConfig(
+    kw = dict(
         vocab_size=d.vocab, n_layers=d.n_layers, d_model=d.d_model,
         n_heads=d.n_heads, n_kv_heads=d.n_kv_heads, d_ff=d.d_ff,
         max_seq_len=d.max_positions,
@@ -33,6 +37,12 @@ def gpt_config(d: Dims):
         tie_embeddings=d.tie_embeddings, dtype=torch.bfloat16,
         param_dtype=torch.float32, remat=True, remat_policy="dots",
         z_loss=d.z_loss)
+    extra = port_kwargs(d)
+    fixed = sorted(kw.keys() & extra.keys())
+    if fixed:
+        raise ValueError(f"the {d.family} family's port_kwargs set {fixed}, "
+                         "which the configuration fixes")
+    return GPTConfig(**kw, **extra)
 
 
 def _local(p):
@@ -41,21 +51,31 @@ def _local(p):
 
 
 def build_model(d: Dims, seed: int, device, mesh=None):
-    """The port's GPT of `d` holding the benchmark's weights of `seed`."""
+    """The port's GPT of `d` holding the benchmark's weights of `seed`:
+    every parameter of the port drawn, in the family's layout, at the
+    port's shape."""
     import torch
     from ray_tpu_torch.models import GPT
 
     model = GPT(gpt_config(d), device=device, seed=0, mesh=mesh)
     params = dict(model.named_parameters())
+    drawn = set()
     with torch.no_grad():
         for group in weights.draw_groups(d, seed, device):
             for name, w in group.items():
+                if name not in params:
+                    raise ValueError(f"{name}: the benchmark drew it, the "
+                                     "port has no such parameter")
                 local = _local(params[name])
                 if local.shape != w.shape:
                     raise ValueError(f"{name}: the port holds "
                                      f"{tuple(local.shape)}, the benchmark "
                                      f"drew {tuple(w.shape)}")
                 local.copy_(w)
+                drawn.add(name)
+    if drawn != set(params):
+        raise ValueError("the port holds parameters the benchmark does not "
+                         f"draw: {sorted(set(params) - drawn)}")
     return model
 
 

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 from typing import Optional
 
-from ..families import dims
+from .. import families
 from . import flops
 
 
@@ -25,7 +25,7 @@ def share(run: dict, kind: str) -> Optional[float]:
     w = run["window"]
     if not calls or "batch" not in w:
         return None
-    d = dims(run["config"])
+    d = families.dims(run["config"])
     bound = len(calls) * flops.bound_s(*flops.attention_work(
         w["batch"], d.n_heads, d.n_kv_heads, w["seq"], w["seq"], d.head_dim,
         elem=2, causal=True, backward=kind == "bwd"))[0]
@@ -44,14 +44,16 @@ def idle(run: dict) -> Optional[float]:
 
 
 def mfu(run: dict) -> Optional[float]:
-    """The window's tokens/s times the benchmark's operations per token
-    (6 N + 12 L d S + 6 d V, S the cell's sequence length) over the card's
-    dense bf16 peak, in percent."""
+    """The window's tokens/s times the family's operations per token (by
+    default 6 N + 12 L d S + 6 d V, S the cell's sequence length) over the
+    card's dense bf16 peak, in percent."""
     if run["traffic"]["kind"] != "train":
         return None
     peak = flops.peak_flops(run["kind"])
     if peak is None:
         return None
     w = run["window"]
-    per_token = flops.train_flops_per_token(dims(run["config"]), w["seq"])
+    d = families.dims(run["config"])
+    per_token = getattr(families.module(d), "train_flops_per_token",
+                        flops.train_flops_per_token)(d, w["seq"])
     return 100.0 * w["tokens_per_s"] * per_token / peak

@@ -14,7 +14,8 @@ from typing import Dict, Iterator
 
 import torch
 
-from ..reference.common import Dims, groups
+from ..families import groups
+from ..reference.common import Dims
 
 _MASK = (1 << 63) - 1
 
@@ -39,7 +40,8 @@ def _generator(device, seed: int) -> torch.Generator:
 
 def draw_group(d: Dims, seed: int, index: int, device
                ) -> Dict[str, torch.Tensor]:
-    """The f32 leaves of group `index` of `groups(d)`."""
+    """The f32 leaves of group `index` of `groups(d)` (the family's
+    layout)."""
     group = groups(d)[index]
     n = sum(math.prod(shape) for _, shape, init in group
             if init in ("normal", "resid"))

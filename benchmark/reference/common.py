@@ -1,5 +1,6 @@
-"""What every family's reference shares: sizes, the parameter layout, the
-precision of the products, attention, the loss and AdamW as optax has it."""
+"""What every family's reference shares: sizes, the dense parameter layout,
+the precision of the products, attention, the loss and AdamW as optax has
+it."""
 
 from __future__ import annotations
 
@@ -39,9 +40,10 @@ class Dims:
 
 def leaves(d: Dims) -> List[Tuple[str, Tuple[int, ...], str]]:
     """(name, shape, init) of every parameter, in the order they are drawn:
-    the leaves outside the blocks first, then each block's. `init` is
-    "normal" (std init_std), "resid" (init_std / sqrt(2 L)), "one" or
-    "zero"."""
+    the leaves outside the blocks first, then each block's, every block
+    attention and a dense MLP (a family with other blocks lists its own,
+    `families.leaves`). `init` is "normal" (std init_std), "resid"
+    (init_std / sqrt(2 L)), "one" or "zero"."""
     D, f, hd = d.d_model, d.d_ff, d.head_dim
     out = [("tok_embed", (d.vocab, D), "normal"),
            ("norm_f", (D,), "one")]
@@ -64,17 +66,6 @@ def leaves(d: Dims) -> List[Tuple[str, Tuple[int, ...], str]]:
             out.append((p + "w_gate", (D, f), "normal"))
         if d.norm == "layernorm":
             out += [(p + "bias1", (D,), "zero"), (p + "bias2", (D,), "zero")]
-    return out
-
-
-def groups(d: Dims) -> List[List[Tuple[str, Tuple[int, ...], str]]]:
-    """`leaves` cut into the groups drawn by one call each: the leaves
-    outside the blocks, then one group a block."""
-    all_leaves = leaves(d)
-    out = [[x for x in all_leaves if not x[0].startswith("blocks.")]]
-    for i in range(d.n_layers):
-        out.append([x for x in all_leaves
-                    if x[0].startswith(f"blocks.{i}.")])
     return out
 
 

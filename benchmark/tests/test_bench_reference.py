@@ -1,4 +1,5 @@
-"""The plain reference against the port at a tiny size on the CPU."""
+"""The plain reference against the port at a tiny size on the CPU, for
+every cell of the benchmark."""
 
 import pytest
 import torch
@@ -8,8 +9,10 @@ from benchmark.harness import check, program, spec, weights
 from benchmark.reference import family
 from benchmark.reference.common import F32, AdamW, exact_f32
 
+from .test_bench_cells import CELLS
 
-@pytest.mark.parametrize("name", ["mistral_7b_d8.train", "gpt2_medium.step"])
+
+@pytest.mark.parametrize("name", CELLS)
 def test_reference_forward_and_loss_match_the_port(tiny_root, name):
     cell = spec.find_cell(name, tiny_root, tiny_root / "benchmark")
     d = dims(cell.config)
